@@ -1,0 +1,109 @@
+"""Boundaries of the port: it imports neither jax nor the reference package,
+and it never runs on the CPU unless asked to.
+"""
+import ast
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch import resolve_device
+from repro_torch.coding import GF8, RLNC
+from repro_torch.core import CodeParams
+from repro_torch.kernels import gf_matmul_numpy
+from repro_torch.storage import RlncSimulator, reconstruction_vs_rounds, uniform
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+MODULES = sorted(
+    ".".join(p.relative_to(ROOT / "src").with_suffix("").parts).replace(
+        ".__init__", "")
+    for p in PORT.rglob("*.py"))
+
+
+def test_import_leaves_jax_and_reference_out():
+    code = (
+        "import sys, importlib\n"
+        f"for m in {MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "print(len(sys.modules))\n"
+        "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          env={"PYTHONPATH": str(ROOT / "src"),
+                               "PATH": "/usr/bin:/bin"},
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert len(MODULES) >= 20
+
+
+@pytest.mark.parametrize("path", [ROOT / "chip_smoke.py",
+                                  *sorted(PORT.rglob("*.py"))],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_import_of_jax_or_reference(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), (path, name)
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_default_device_raises_without_cuda(no_cuda):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device()
+    with pytest.raises(RuntimeError):
+        resolve_device("cuda:0")
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        resolve_device("meta")
+
+
+def test_entry_points_raise_without_cuda(no_cuda):
+    params = CodeParams.msr(n=8, k=2, d=4, M=6.0)
+    with pytest.raises(RuntimeError):
+        RlncSimulator(params)
+    with pytest.raises(RuntimeError):
+        RLNC(GF8)
+    with pytest.raises(RuntimeError):
+        reconstruction_vs_rounds(params, "ftr", uniform(), 1, 1)
+    a = np.ones((2, 2), np.uint8)
+    with pytest.raises(RuntimeError):
+        gf_matmul_numpy(a, a)
+    sim = RlncSimulator(params, device="cpu")
+    assert sim.file_blocks.device.type == "cpu"
+
+
+def test_chip_smoke_refuses_without_cuda(tmp_path):
+    """Without CUDA, and alone in a directory, chip_smoke.py exits nonzero
+    and prints no result."""
+    script = (ROOT / "chip_smoke.py").read_text()
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text(script)
+    for cwd, path in ((ROOT, ROOT / "chip_smoke.py"), (tmp_path, alone)):
+        code = ("import sys, torch\n"
+                "torch.cuda.is_available = lambda: False\n"
+                f"sys.argv = [{str(path)!r}]\n"
+                f"exec(compile(open({str(path)!r}).read(), {str(path)!r}, "
+                "'exec'), {'__name__': '__main__', '__file__': "
+                f"{str(path)!r}}})\n")
+        proc = subprocess.run([sys.executable, "-c", code], cwd=cwd,
+                              capture_output=True, text=True, timeout=120,
+                              env={"PATH": "/usr/bin:/bin"})
+        assert proc.returncode != 0
+        assert '"ok"' not in proc.stdout
