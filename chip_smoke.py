@@ -23,7 +23,8 @@ nonzero:
 3. The kernel against its plain version on the card (``torch.equal``) at
    ragged shapes, K = 1024, zeros, the identity and every product shape the
    main path ran; then times of both at each main-path shape beside the
-   card's bound for that work.
+   card's bound for that work.  The kernel's ``ms`` in the record is the
+   main path's own launches, timed by CUDA events around each call.
 
 The next-to-last line is the ``{"kernels": [...]}`` record; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits nonzero and prints
@@ -80,16 +81,33 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 class ShapeLog:
-    """A GF matmul that records the (M, K, N) of every call and passes it
-    on unchanged (here: to the port's dispatcher, i.e. the kernel)."""
+    """A GF matmul that records the (M, K, N) of every call, brackets the
+    call with CUDA events on the current stream, and passes it on unchanged
+    (here: to the port's dispatcher, i.e. the kernel)."""
 
     def __init__(self, matmul):
         self.matmul = matmul
         self.shapes = collections.Counter()
+        self.events = []          # [((M, K, N), start, end), ...]
 
     def __call__(self, a, b):
-        self.shapes[(a.shape[0], a.shape[1], b.shape[1])] += 1
-        return self.matmul(a, b)
+        shape = (a.shape[0], a.shape[1], b.shape[1])
+        self.shapes[shape] += 1
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self.matmul(a, b)
+        end.record()
+        self.events.append((shape, start, end))
+        return out
+
+    def ms_by_shape(self):
+        """Device ms between each call's events, summed per shape (call
+        after a synchronize)."""
+        total = collections.Counter()
+        for shape, start, end in self.events:
+            total[shape] += start.elapsed_time(end)
+        return total
 
 
 def rand_u8(shape, gen) -> torch.Tensor:
@@ -129,7 +147,7 @@ def main(argv=None) -> int:
     # -- 1. build ------------------------------------------------------------
     t0 = time.perf_counter()
     lib_path, build_out = kmod.build()
-    kmod.library()
+    kmod.mul_table(torch.device(DEVICE, torch.cuda.current_device()))
     results["build_s"] = time.perf_counter() - t0
     log(f"build: {results['build_s']:.2f} s -> {lib_path.name}")
     for line in build_out.splitlines():
@@ -222,10 +240,14 @@ def main(argv=None) -> int:
     launches = gf_matmul_cuda.launches
     if launches <= 0:
         raise AssertionError("the main path never launched the kernel")
+    torch.cuda.synchronize()
+    main_ms = shape_log.ms_by_shape()
     results.update(repairs=repairs, main_path_launches=launches,
+                   main_path_kernel_ms=sum(main_ms.values()),
                    peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
     log(f"main path: {launches} kernel launches, "
-        f"{sum(shape_log.shapes.values())} GF products, peak "
+        f"{sum(shape_log.shapes.values())} GF products taking "
+        f"{results['main_path_kernel_ms']} ms between their events, peak "
         f"{results['peak_mem_gib']:.2f} GiB")
     del sim, file_blocks, newcomer
     torch.cuda.empty_cache()
@@ -274,6 +296,7 @@ def main(argv=None) -> int:
         plain_ms = cuda_ms(lambda: gf_matmul_ref(a, b), 1 if big else 10)
         t_bytes, t_ops = bound_terms(m, kk, n)
         rows.append(dict(shape=[m, kk, n], calls=shape_log.shapes[(m, kk, n)],
+                         main_path_ms=main_ms[(m, kk, n)],
                          ms=ms, plain_ms=plain_ms,
                          bound_ms=max(t_bytes, t_ops), bytes_ms=t_bytes,
                          ops_ms=t_ops,
@@ -285,8 +308,10 @@ def main(argv=None) -> int:
         del a, b
         torch.cuda.empty_cache()
 
-    # the kernel line covers the main path's work: each shape's time (and
-    # bound) times the number of calls the main path made at that shape
+    # `ms` is the main path's own launches, timed by the events around each
+    # call; `plain_ms` and `bound_ms` cover the same work as each shape's
+    # warm mean (or bound) times the number of calls the main path made at
+    # that shape, and `ms_from_shapes` is the kernel's time on that footing
     total = {key: sum(r["calls"] * r[key] for r in rows)
              for key in ("ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms")}
     kernels = [{
@@ -297,7 +322,8 @@ def main(argv=None) -> int:
         "launches": launches,
         "max_abs_err": max_err,
         "matches_plain": max_err == 0,
-        "ms": total["ms"],
+        "ms": results["main_path_kernel_ms"],
+        "ms_from_shapes": total["ms"],
         "plain_ms": total["plain_ms"],
         "bound_ms": total["bound_ms"],
         "bound_by": ("operations" if total["ops_ms"] >= total["bytes_ms"]

@@ -192,12 +192,9 @@ class GF:
         the result are the same as one call, without the 4-byte temporary of
         the whole array."""
         shape = tuple(np.atleast_1d(shape).tolist())
-        rows = shape[0] if shape else 1
+        rows = shape[0]
         per_row = int(np.prod(shape[1:], dtype=np.int64))
         step = max(1, _RANDOM_SLAB // max(per_row, 1))
-        if rows <= step:
-            return rng.integers(0, self.q, size=shape,
-                                dtype=np.uint32).astype(self.dtype)
         out = np.empty(shape, dtype=self.dtype)
         for r0 in range(0, rows, step):
             r1 = min(r0 + step, rows)

@@ -14,11 +14,11 @@ from .star import fr_closed_form_msr, plan_fr, plan_shah, plan_star
 from .tree import plan_tr, tree_time_uniform
 from .ftr import eval_tree, plan_ftr
 from .rctree import plan_rctree
-from .api import (BatchPlanResult, SchemeSpec, get_scheme, plan, plan_many,
-                  register_scheme, scheme_names, unregister_scheme)
+from .api import (SchemeSpec, get_scheme, plan, plan_many, register_scheme,
+                  scheme_names)
 
 __all__ = [
-    "BatchPlanResult", "CodeParams", "Edge", "FeasibleRegion",
+    "CodeParams", "Edge", "FeasibleRegion",
     "OverlayNetwork", "RepairPlan", "SchemeSpec", "eval_tree",
     "fr_closed_form_msr", "get_scheme", "heuristic_region", "mbr_point",
     "msr_point", "msr_region", "plan", "plan_fr", "plan_ftr", "plan_many",

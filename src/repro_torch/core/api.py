@@ -12,9 +12,7 @@ arguments pass through to the planner.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
-
-import numpy as np
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from .params import CodeParams, OverlayNetwork, RepairPlan
 from .star import plan_fr, plan_shah, plan_star
@@ -22,65 +20,37 @@ from .tree import plan_tr
 from .ftr import plan_ftr
 from .rctree import plan_rctree
 
-__all__ = ["BatchPlanResult", "SchemeSpec", "get_scheme",
-           "plan", "plan_many", "register_scheme", "scheme_names",
-           "unregister_scheme"]
+__all__ = ["SchemeSpec", "get_scheme", "plan", "plan_many",
+           "register_scheme", "scheme_names"]
 
 ScalarPlanner = Callable[..., RepairPlan]
 ENGINES = ("auto", "scalar")
-TOPOLOGIES = ("star", "tree")
 
 
 @dataclasses.dataclass(frozen=True)
 class SchemeSpec:
     """One registered regeneration scheme: its scalar planner
-    ``(net, params, **kw) -> RepairPlan``, whether that planner takes the
-    ``witness=`` selector, and whether it searches trees or plans stars."""
+    ``(net, params, **kw) -> RepairPlan`` and whether that planner takes
+    the ``witness=`` selector."""
 
     name: str
     scalar: ScalarPlanner
     accepts_witness: bool = False
-    topology: str = "star"
-    description: str = ""
-
-    def __post_init__(self):
-        if self.topology not in TOPOLOGIES:
-            raise ValueError(f"topology must be one of {TOPOLOGIES}, "
-                             f"got {self.topology!r}")
-
-
-@dataclasses.dataclass
-class BatchPlanResult:
-    """A batch of plans, packed as ``repro.core.batched.BatchPlanResult``
-    packs them: ``parents[b, u]`` is the tree parent of provider u
-    (``parents[b, 0] = 0``), ``betas[b, i]`` the traffic generated by
-    provider i+1, and ``plans`` the scalar plans themselves."""
-
-    scheme: str
-    times: np.ndarray          # (B,)
-    traffic: np.ndarray        # (B,)
-    betas: np.ndarray          # (B, d)
-    parents: np.ndarray        # (B, d+1)
-    plans: List[RepairPlan]
-    engine: str = "scalar"
 
 
 _REGISTRY: Dict[str, SchemeSpec] = {}
 
 
 def register_scheme(name: str, scalar: Optional[ScalarPlanner] = None, *,
-                    accepts_witness: bool = False, topology: str = "star",
-                    description: str = "", replace: bool = False):
+                    accepts_witness: bool = False):
     """Register a scheme; usable directly (returns the :class:`SchemeSpec`)
-    or as a decorator (returns the planner unchanged).  ``replace=True``
-    allows overwriting an entry; otherwise double registration raises."""
+    or as a decorator (returns the planner unchanged).  Registering a name
+    twice raises."""
     def _register(fn: ScalarPlanner) -> SchemeSpec:
-        if name in _REGISTRY and not replace:
-            raise ValueError(f"scheme {name!r} is already registered; "
-                             f"pass replace=True to overwrite")
+        if name in _REGISTRY:
+            raise ValueError(f"scheme {name!r} is already registered")
         spec = SchemeSpec(name=name, scalar=fn,
-                          accepts_witness=accepts_witness,
-                          topology=topology, description=description)
+                          accepts_witness=accepts_witness)
         _REGISTRY[name] = spec
         return spec
 
@@ -92,11 +62,6 @@ def register_scheme(name: str, scalar: Optional[ScalarPlanner] = None, *,
     return _register(scalar)
 
 
-def unregister_scheme(name: str) -> None:
-    """Remove a scheme from the registry."""
-    _REGISTRY.pop(get_scheme(name).name)
-
-
 def get_scheme(name: str) -> SchemeSpec:
     """Resolve a scheme name, with an error that lists what is registered."""
     try:
@@ -106,11 +71,9 @@ def get_scheme(name: str) -> SchemeSpec:
                          f"{sorted(_REGISTRY)}") from None
 
 
-def scheme_names(topology: Optional[str] = None) -> Tuple[str, ...]:
-    """Registered scheme names in registration order, optionally only those
-    of one topology (``"star"`` or ``"tree"``)."""
-    return tuple(spec.name for spec in _REGISTRY.values()
-                 if topology is None or spec.topology == topology)
+def scheme_names() -> Tuple[str, ...]:
+    """Registered scheme names in registration order."""
+    return tuple(_REGISTRY)
 
 
 def _check_engine(engine: str) -> None:
@@ -140,49 +103,28 @@ def plan(net: OverlayNetwork, params: CodeParams, scheme: str,
     return spec.scalar(net, params, **_planner_kwargs(spec, witness, kwargs))
 
 
-def plan_many(nets: Union[np.ndarray, Sequence[OverlayNetwork]],
-              params: CodeParams, scheme: str, engine: str = "auto",
-              witness: str = "exact", **kwargs) -> BatchPlanResult:
-    """Plan one scheme across a batch of networks with the scalar loop.
-
-    ``nets`` is a ``(B, d+1, d+1)`` capacity array or a sequence of
-    :class:`OverlayNetwork` of one fan-out ``params.d``."""
+def plan_many(nets: Sequence[OverlayNetwork], params: CodeParams,
+              scheme: str, engine: str = "auto", witness: str = "exact",
+              **kwargs) -> List[RepairPlan]:
+    """Plan one scheme for each overlay of ``nets`` (all of fan-out
+    ``params.d``) with the scalar loop; returns the plans in order."""
     _check_engine(engine)
     spec = get_scheme(scheme)
-    net_list = ([OverlayNetwork(c.tolist()) for c in nets]
-                if isinstance(nets, np.ndarray) else list(nets))
-    if any(n.d != params.d for n in net_list):
+    nets = list(nets)
+    if any(n.d != params.d for n in nets):
         raise ValueError(f"every overlay needs d={params.d}; mixed fan-outs "
                          f"arrive with the device planning tier")
     kw = _planner_kwargs(spec, witness, kwargs)
-    plans = [spec.scalar(n, params, **kw) for n in net_list]
-    d = params.d
-    B = len(plans)
-    parents = np.zeros((B, d + 1), dtype=np.int64)
-    betas = np.zeros((B, d))
-    for b, p in enumerate(plans):
-        for u in range(1, d + 1):
-            parents[b, u] = p.parent[u]
-        betas[b] = p.betas
-    return BatchPlanResult(
-        spec.name, np.array([p.time for p in plans], dtype=np.float64),
-        np.array([p.total_traffic for p in plans], dtype=np.float64),
-        betas, parents, plans)
+    return [spec.scalar(n, params, **kw) for n in nets]
 
 
 # ---------------------------------------------------------------------------
 # Built-in schemes (the paper's family)
 # ---------------------------------------------------------------------------
 
-register_scheme("star", plan_star, topology="star",
-                description="conventional uniform-beta star [3] (baseline)")
-register_scheme("fr", plan_fr, accepts_witness=True, topology="star",
-                description="Flexible Regeneration on the star (Section III)")
-register_scheme("tr", plan_tr, topology="tree",
-                description="tree topology, uniform traffic (Algorithm 1)")
-register_scheme("ftr", plan_ftr, accepts_witness=True, topology="tree",
-                description="flexible traffic on a searched tree (Alg. 2)")
-register_scheme("shah", plan_shah, topology="star",
-                description="the (beta_max, gamma) scheme of Shah et al. [6]")
-register_scheme("rctree", plan_rctree, topology="tree",
-                description="RCTREE [7], the MDS-violating prior scheme")
+register_scheme("star", plan_star)                        # uniform-beta star [3]
+register_scheme("fr", plan_fr, accepts_witness=True)      # Section III
+register_scheme("tr", plan_tr)                            # Algorithm 1
+register_scheme("ftr", plan_ftr, accepts_witness=True)    # Algorithm 2
+register_scheme("shah", plan_shah)                        # Shah et al. [6]
+register_scheme("rctree", plan_rctree)                    # RCTREE [7]

@@ -40,8 +40,9 @@
 //     one column tile of B, which L2 then serves to all of them.
 //   * Offsets are 64-bit: the distribute output is about 4.0e9 bytes.
 //
-// The launcher allocates nothing, runs on the caller's stream and returns
-// the launch's cudaError_t; the Python wrapper raises on a nonzero value.
+// The launcher allocates nothing, runs on the caller's stream and current
+// device (the Python wrapper selects A's device) and returns the launch's
+// cudaError_t; the wrapper raises on a nonzero value.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -159,18 +160,27 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 
 }  // namespace
 
+// Lets both variants use kSmemBytes of dynamic shared memory (more than the
+// default 48 KiB) on the current device.  Called once per device before its
+// first launch.
+extern "C" int gf256_init() {
+  cudaError_t err = cudaFuncSetAttribute(gf256_matmul_kernel<true>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(gf256_matmul_kernel<false>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  return static_cast<int>(err);
+}
+
+// Launches on the current device, which must hold A, B, C and the table.
 extern "C" int gf256_matmul_launch(const void* A, const void* B, void* C,
                                    const void* table, long long M, long long K,
-                                   long long N, int device, void* stream) {
+                                   long long N, void* stream) {
   if (M <= 0 || N <= 0 || K < 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const bool vec = (N % kBytesPerThread == 0) && aligned16(B) && aligned16(C);
   void (*kernel)(const uint8_t*, const uint8_t*, uint8_t*, const uint8_t*,
                  int64_t, int64_t, int64_t) =
       vec ? gf256_matmul_kernel<true> : gf256_matmul_kernel<false>;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t m_tiles = (M + kTileM - 1) / kTileM;
   const int64_t n_tiles = (N + kTileN - 1) / kTileN;
   if (m_tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);

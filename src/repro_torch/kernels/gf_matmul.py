@@ -41,18 +41,19 @@ def _nvcc() -> str:
     raise RuntimeError(f"nvcc not found under {home} or on PATH")
 
 
-def build(build_dir: pathlib.Path = BUILD_DIR) -> Tuple[pathlib.Path, str]:
-    """Compile the kernel's shared library unless it is already built.
+def build() -> Tuple[pathlib.Path, str]:
+    """Compile the kernel's shared library into ``BUILD_DIR`` unless it is
+    already built.
 
     Returns (library path, compiler output); the output holds ptxas's
     register and shared-memory report, and is empty when nothing was built.
     """
     digest = hashlib.sha256(SOURCE.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = build_dir / f"libgf_matmul_{digest}.so"
+    lib = BUILD_DIR / f"libgf_matmul_{digest}.so"
     if lib.exists():
         return lib, ""
-    build_dir.mkdir(parents=True, exist_ok=True)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
     proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
                           capture_output=True, text=True)
@@ -63,15 +64,23 @@ def build(build_dir: pathlib.Path = BUILD_DIR) -> Tuple[pathlib.Path, str]:
     return lib, proc.stdout + proc.stderr
 
 
+def _check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} failed: "
+                           f"{lib.gf256_error_string(err).decode()} ({err})")
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The built and loaded kernel library (built on first call)."""
     path, _ = build()
     lib = ctypes.CDLL(str(path))
+    lib.gf256_init.argtypes = []
+    lib.gf256_init.restype = ctypes.c_int
     lib.gf256_matmul_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
-        ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_void_p]
     lib.gf256_matmul_launch.restype = ctypes.c_int
     lib.gf256_error_string.argtypes = [ctypes.c_int]
     lib.gf256_error_string.restype = ctypes.c_char_p
@@ -81,9 +90,13 @@ def library() -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def mul_table(device: torch.device) -> torch.Tensor:
     """The 256 x 256 GF(2^8) product table, row-major (entry a*256+b = a.b),
-    on ``device``; the kernel stages it in shared memory."""
+    on ``device``; the kernel stages it in shared memory.  The first call
+    for a device also lets the kernel use that much shared memory there."""
     from ..coding.gf import GF8   # here: repro_torch.coding imports this module
 
+    lib = library()
+    with torch.cuda.device(device):
+        _check(lib, lib.gf256_init(), f"gf256_init on {device}")
     x = np.arange(256)
     return torch.from_numpy(GF8.mul(x[:, None], x[None, :])).to(device)
 
@@ -93,8 +106,8 @@ def gf_matmul_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
     A (M, K) and B (K, N) must be contiguous uint8 CUDA tensors on one
     device; anything else raises.  The output is allocated here and the
-    kernel runs on the current stream.  ``gf_matmul_cuda.launches`` counts
-    the launches.
+    kernel runs on that device's current stream.  ``gf_matmul_cuda.launches``
+    counts the launches.
     """
     check_operands(a, b)
     if a.device.type != "cuda":
@@ -106,16 +119,14 @@ def gf_matmul_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     out = torch.empty((M, N), dtype=torch.uint8, device=a.device)
     if M == 0 or N == 0:
         return out
-    lib = library()
     table = mul_table(a.device)
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    err = lib.gf256_matmul_launch(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                                  table.data_ptr(), M, K, N, a.device.index,
-                                  stream)
-    if err != 0:
-        raise RuntimeError(f"gf256_matmul launch failed at (M, K, N) = "
-                           f"{(M, K, N)}: "
-                           f"{lib.gf256_error_string(err).decode()} ({err})")
+    lib = library()
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.gf256_matmul_launch(a.data_ptr(), b.data_ptr(),
+                                      out.data_ptr(), table.data_ptr(),
+                                      M, K, N, stream)
+    _check(lib, err, f"gf256_matmul launch at (M, K, N) = {(M, K, N)}")
     gf_matmul_cuda.launches += 1
     return out
 

@@ -193,8 +193,8 @@ class RlncSimulator:
         [(failed, providers, plan), ...] ready for ``execute_plan``.
         """
         drawn = [self._sample_round(sampler) for _ in range(rounds)]
-        res = plan_many([net for _, _, net in drawn], self.params, scheme)
-        return [(f, p, pl) for (f, p, _), pl in zip(drawn, res.plans)]
+        plans = plan_many([net for _, _, net in drawn], self.params, scheme)
+        return [(f, p, pl) for (f, p, _), pl in zip(drawn, plans)]
 
     def repair_round(self, scheme: str, sampler: CapSampler,
                      failed: Optional[int] = None) -> RepairPlan:
