@@ -7,8 +7,9 @@ What it does, in order; any failed check raises and the exit code is
 nonzero:
 
 1. Prints the card (``nvidia-smi`` name and power limit) and the torch and
-   CUDA versions, then builds the GF(2^8) matmul kernel from
-   ``src/repro_torch/kernels/csrc/gf_matmul.cu`` for sm_90a.
+   CUDA versions, then builds the GF(2^8) matmul kernel (bit-matrix
+   ``wgmma``) from ``src/repro_torch/kernels/csrc/gf_matmul.cu`` for sm_90a
+   and prints ptxas's registers and spills.
 2. The main path, at the paper's Fig. 7 deployment (arXiv:1603.05163 §VI:
    MSR n=20, k=5, d=10) with the file cut into M = 240 blocks of 4 MiB
    (960 MiB; alpha = 48, beta = 8): the file is distributed onto 20 nodes
@@ -20,11 +21,17 @@ nonzero:
    state with the plain PyTorch matmul on the card must give the same
    newcomer; and 64 sampled k-subsets must reconstruct.  The kernel's
    launch counter is zeroed before this phase and must have risen after.
-3. The kernel against its plain version on the card (``torch.equal``) at
-   ragged shapes, K = 1024, zeros, the identity and every product shape the
-   main path ran; then times of both at each main-path shape beside the
-   card's bound for that work.  The kernel's ``ms`` in the record is the
-   main path's own launches, timed by CUDA events around each call.
+3. The kernel against its plain version on the card (``torch.equal``):
+   mapping probes (the identity with single-bit payloads at K = 1..5 and
+   1024, single set bits in a zero payload, N = 1000 and the byte-wise
+   N = 1001, a payload 4 bytes off alignment), ragged shapes, zeros, the
+   identity and every product shape the main path ran; the plain
+   bit-matrix version against the plain version.  Then times of both at
+   each main-path shape beside the card's bound for that work, and at the
+   distribute and decode shapes ``torch._int_mm`` (cuBLASLt) on the
+   kernel's own bit-matrix product as a yardstick (``int8_gemm_ms``).  The
+   kernel's ``ms`` in the record is the main path's own launches, timed by
+   CUDA events around each call.
 
 The next-to-last line is the ``{"kernels": [...]}`` record; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits nonzero and prints
@@ -52,6 +59,7 @@ PARAMS = dict(n=20, k=5, d=10, M=240.0)
 BLOCK_BYTES = 4 * MIB
 SCHEMES = ("star", "fr", "tr", "ftr")
 PROB_SAMPLES = 64
+INT8_CHUNK = 1 << 16             # payload columns per torch._int_mm call
 
 
 def log(*parts) -> None:
@@ -78,6 +86,28 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def int8_gemm_ms(a: torch.Tensor, n: int, gen) -> float:
+    """Device ms of ``torch._int_mm`` (cuBLASLt) on the kernel's own
+    bit-matrix product for A (M, K) and an (K, n) payload: B_bits^T
+    (INT8_CHUNK x 8K) int8 times T^T (8K x 8M) int8, timed on one column
+    chunk and scaled by n / INT8_CHUNK.  The packed parity of its counts
+    must equal the kernel's product on that chunk."""
+    from repro_torch.kernels import gf_bitmatrix, gf_matmul_cuda
+
+    m, kk = a.shape
+    t_t = gf_bitmatrix(a).to(torch.int8).t()              # (8K, 8M)
+    bc = rand_u8((kk, INT8_CHUNK), gen)
+    shifts = torch.arange(8, device=DEVICE, dtype=torch.int32)
+    bbits = ((bc.to(torch.int32).unsqueeze(1) >> shifts.view(1, 8, 1)) & 1) \
+        .reshape(8 * kk, INT8_CHUNK).t().contiguous().to(torch.int8)
+    ms = cuda_ms(lambda: torch._int_mm(bbits, t_t), 3) * n / INT8_CHUNK
+    bits = (torch._int_mm(bbits, t_t) & 1).view(INT8_CHUNK, m, 8)
+    packed = (bits << shifts).sum(dim=-1).to(torch.uint8).t()
+    if not torch.equal(packed, gf_matmul_cuda(a, bc)):
+        raise AssertionError(f"int8 GEMM parity != kernel at M={m}, K={kk}")
+    return ms
 
 
 class ShapeLog:
@@ -131,7 +161,8 @@ def main(argv=None) -> int:
     import importlib
 
     from repro_torch.core import CodeParams
-    from repro_torch.kernels import gf_matmul, gf_matmul_cuda, gf_matmul_ref
+    from repro_torch.kernels import (gf_matmul, gf_matmul_bitmatrix,
+                                     gf_matmul_cuda, gf_matmul_ref)
     from repro_torch.storage import RlncSimulator, uniform
     kmod = importlib.import_module("repro_torch.kernels.gf_matmul")
 
@@ -147,11 +178,11 @@ def main(argv=None) -> int:
     # -- 1. build ------------------------------------------------------------
     t0 = time.perf_counter()
     lib_path, build_out = kmod.build()
-    kmod.mul_table(torch.device(DEVICE, torch.cuda.current_device()))
+    kmod.device_sms(torch.device(DEVICE, torch.cuda.current_device()))
     results["build_s"] = time.perf_counter() - t0
     log(f"build: {results['build_s']:.2f} s -> {lib_path.name}")
     for line in build_out.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
+        if any(w in line for w in ("registers", "spill", "smem", "serialized")):
             log("  ptxas:", line.strip())
 
     # -- 2. main path: distribute, then one repair per scheme ---------------
@@ -252,26 +283,48 @@ def main(argv=None) -> int:
     del sim, file_blocks, newcomer
     torch.cuda.empty_cache()
 
-    # -- 3. kernel vs plain, then times --------------------------------------
+    # -- 3. kernel vs plain: mapping probes, every main-path shape, times ----
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(args.seed)
     max_err = 0
+    n_checked = 0
 
     def compare(a, b, label):
-        nonlocal max_err
+        nonlocal max_err, n_checked
         got = gf_matmul_cuda(a, b)
         want = gf_matmul_ref(a, b)
         torch.cuda.synchronize()
         err = int((got.to(torch.int16) - want.to(torch.int16)).abs().max()) \
             if got.numel() else 0
         max_err = max(max_err, err)
+        n_checked += 1
         if not torch.equal(got, want):
             raise AssertionError(f"kernel != plain at {label}: max err {err}")
         return got
 
+    # The identity with single-bit payloads puts every fragment byte,
+    # accumulator column and output byte where the layout says (N = 1000 is
+    # a multiple of 8, N = 1001 takes the byte-wise variant); one set bit in
+    # a zero payload lands in one output column.
+    for kk in (1, 2, 3, 4, 5, 1024):
+        eye = torch.eye(kk, dtype=torch.uint8, device=DEVICE)
+        for n in (1000, 1001):
+            for bit in range(8):
+                b = torch.full((kk, n), 1 << bit, dtype=torch.uint8,
+                               device=DEVICE)
+                if not torch.equal(compare(eye, b, f"I_{kk}, bit {bit}"), b):
+                    raise AssertionError(f"I . B != B at K={kk}, bit {bit}")
+    a = rand_u8((9, 37), gen)
+    for k0, n0, bit in [(0, 0, 0), (36, 511, 7), (5, 513, 3), (17, 1000, 6)]:
+        for n in (1001, 1024):
+            b = torch.zeros((37, n), dtype=torch.uint8, device=DEVICE)
+            b[k0, min(n0, n - 1)] = 1 << bit
+            compare(a, b, f"one bit at ({k0}, {n0}, {bit}), N={n}")
     for m, kk, n in [(1, 1, 1), (7, 13, 1_000_003), (33, 1024, 100_000),
-                     (64, 1024, 4096), (5, 3, 17)]:
+                     (64, 1024, 4096), (5, 3, 17), (11, 48, 100_003)]:
         compare(rand_u8((m, kk), gen), rand_u8((kk, n), gen), (m, kk, n))
+    base = rand_u8((1, 8 * 4096 + 4), gen)[0]
+    compare(rand_u8((5, 8), gen), base[4:].view(8, 4096), "B at 4 bytes off")
     b = rand_u8((64, 1_000_000), gen)
     eye = torch.eye(64, dtype=torch.uint8, device=DEVICE)
     if not torch.equal(compare(eye, b, "identity"), b):
@@ -285,8 +338,14 @@ def main(argv=None) -> int:
     for m, kk, n in main_shapes:
         compare(rand_u8((m, kk), gen), rand_u8((kk, n), gen), (m, kk, n))
         torch.cuda.empty_cache()
-    log(f"kernel == plain on {5 + 2 + len(main_shapes)} shapes "
-        f"(incl. {len(main_shapes)} main-path shapes), max abs err {max_err}")
+    # the plain bit-matrix version (the kernel's algorithm) on the card
+    for m, kk, n in [(5, 3, 17), (48, 94, MIB)]:
+        a, b = rand_u8((m, kk), gen), rand_u8((kk, n), gen)
+        if not torch.equal(gf_matmul_bitmatrix(a, b), gf_matmul_ref(a, b)):
+            raise AssertionError(f"plain bit-matrix != plain at {(m, kk, n)}")
+    log(f"kernel == plain on {n_checked} products (mapping probes, ragged "
+        f"and unaligned shapes, {len(main_shapes)} main-path shapes), max "
+        f"abs err {max_err}; plain bit-matrix == plain")
 
     rows = []
     for m, kk, n in main_shapes:
@@ -295,25 +354,30 @@ def main(argv=None) -> int:
         ms = cuda_ms(lambda: gf_matmul_cuda(a, b), 3 if big else 50)
         plain_ms = cuda_ms(lambda: gf_matmul_ref(a, b), 1 if big else 10)
         t_bytes, t_ops = bound_terms(m, kk, n)
+        int8_ms = int8_gemm_ms(a, n, gen) if big and m >= 240 else None
         rows.append(dict(shape=[m, kk, n], calls=shape_log.shapes[(m, kk, n)],
                          main_path_ms=main_ms[(m, kk, n)],
-                         ms=ms, plain_ms=plain_ms,
+                         ms=ms, plain_ms=plain_ms, int8_gemm_ms=int8_ms,
                          bound_ms=max(t_bytes, t_ops), bytes_ms=t_bytes,
                          ops_ms=t_ops,
                          bound_by="operations" if t_ops >= t_bytes
                          else "bytes"))
         log(f"  {m}x{kk}x{n}: {rows[-1]['calls']} calls, kernel {ms} ms, "
             f"plain {plain_ms} ms, bound {rows[-1]['bound_ms']} ms "
-            f"({rows[-1]['bound_by']})")
+            f"({rows[-1]['bound_by']}), int8 GEMM {int8_ms} ms")
         del a, b
         torch.cuda.empty_cache()
 
     # `ms` is the main path's own launches, timed by the events around each
     # call; `plain_ms` and `bound_ms` cover the same work as each shape's
     # warm mean (or bound) times the number of calls the main path made at
-    # that shape, and `ms_from_shapes` is the kernel's time on that footing
+    # that shape, and `ms_from_shapes` is the kernel's time on that footing.
+    # `int8_gemm_ms` is torch._int_mm (cuBLASLt) on the kernel's own
+    # bit-matrix product, for the shapes that have it: a yardstick that the
+    # port never calls.
     total = {key: sum(r["calls"] * r[key] for r in rows)
              for key in ("ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms")}
+    gemm_rows = [r for r in rows if r["int8_gemm_ms"] is not None]
     kernels = [{
         "name": "gf_matmul",
         "route": "cuda",
@@ -329,6 +393,8 @@ def main(argv=None) -> int:
         "bound_by": ("operations" if total["ops_ms"] >= total["bytes_ms"]
                      else "bytes"),
         "library_ms": None,
+        "int8_gemm_ms": sum(r["calls"] * r["int8_gemm_ms"] for r in gemm_rows),
+        "int8_gemm_shapes": [r["shape"] for r in gemm_rows],
         "card": card,
         "shapes": rows,
     }]

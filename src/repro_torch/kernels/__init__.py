@@ -6,6 +6,7 @@ PyTorch version.
 """
 from .gf_matmul import gf_matmul_cuda
 from .ops import gf_matmul, gf_matmul_numpy
-from .ref import gf_matmul_ref
+from .ref import gf_bitmatrix, gf_matmul_bitmatrix, gf_matmul_ref
 
-__all__ = ["gf_matmul", "gf_matmul_cuda", "gf_matmul_numpy", "gf_matmul_ref"]
+__all__ = ["gf_bitmatrix", "gf_matmul", "gf_matmul_bitmatrix", "gf_matmul_cuda",
+           "gf_matmul_numpy", "gf_matmul_ref"]

@@ -2,7 +2,10 @@
 
 ``csrc/gf_matmul.cu`` replaces the TPU kernel ``_gf_matmul_kernel``
 (``repro.kernels.gf_matmul.gf_matmul_pallas``); its header says what bounds
-it on the card and how it is laid out.  At first use the source is compiled
+it on the card and how it is laid out.  The launch geometry (bands of A,
+splits of the payload, K padding and chunks, variant) is computed here in
+Python by ``launch_plan``, so the CPU tests reach it; the library checks at
+load time that the source's tile constants agree.  At first use the source is compiled
 with ``nvcc`` for ``sm_90a`` into a shared library with a plain C interface
 under ``build/repro_torch/`` at the root of the checkout (named by a hash of
 the source and flags, so an edit rebuilds), and loaded with ``ctypes``.
@@ -13,6 +16,7 @@ There is no fallback: a failed build or launch raises.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import hashlib
 import os
@@ -21,7 +25,6 @@ import shutil
 import subprocess
 from typing import Tuple
 
-import numpy as np
 import torch
 
 from .ref import check_operands
@@ -70,6 +73,74 @@ def _check(lib: ctypes.CDLL, err: int, what: str) -> None:
                            f"{lib.gf256_error_string(err).decode()} ({err})")
 
 
+# The kernel's tile constants (csrc/gf_matmul.cu); ``library()`` checks
+# that the built source agrees.
+BAND_ROWS = 8        # rows of A per band: 64 output bits, the wgmma N
+TILE_COLS = 512      # payload columns per block and tile (2 warpgroups)
+PAD_ROWS = 16        # K is padded to a multiple: 4 unrolled steps of 4 rows
+CHUNK_ROWS = 384     # payload rows of the band's T in shared memory at once
+SMEM_PER_ROW = 512   # bytes of T per payload row of a band
+RING_BYTES = 32768   # the payload ring: 16 steps x 256 threads x 8 bytes
+MAX_GRID = 65535
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """The geometry of one launch of the bit-matrix kernel.
+
+    The grid is (``splits``, ``bands``): block (x, y) computes A rows
+    [8y, 8y + 8) for payload tiles x, x + splits, ...  K is zero-padded to
+    ``k_pad`` and staged ``k_chunk`` payload rows at a time (one chunk, held
+    for the whole launch, when ``k_pad <= CHUNK_ROWS``).  ``vec`` picks the
+    64-bit load/store variant.
+    """
+    bands: int
+    splits: int
+    k_pad: int
+    k_chunk: int
+    vec: bool
+
+    @property
+    def n_chunks(self) -> int:
+        return -(-self.k_pad // self.k_chunk)
+
+    @property
+    def smem_bytes(self) -> int:
+        return SMEM_PER_ROW * self.k_chunk + RING_BYTES
+
+
+@functools.lru_cache(maxsize=1024)
+def launch_plan(M: int, K: int, N: int, num_sms: int,
+                aligned: bool = True) -> LaunchPlan:
+    """Launch geometry for C (M, N) = A (M, K) . B (K, N) on a card with
+    ``num_sms`` SMs; ``aligned`` says B and C start on 8-byte boundaries.
+
+    One block runs on an SM at a time, and blocks start in waves in grid
+    order.  Every block of a band does the same work (its share of the
+    payload tiles), so ``splits`` is the one (at most one per tile) that
+    minimises the waves per split, ceil(bands * splits / num_sms) / splits:
+    the time of the launch in units of one band's work.  The splits of a
+    band walk interleaved tiles, so the blocks of one wave read the same
+    stretch of payload at the same time.
+    """
+    if M <= 0 or N <= 0 or K < 0 or num_sms <= 0:
+        raise ValueError(f"no launch for (M, K, N) = {(M, K, N)} on "
+                         f"{num_sms} SMs")
+    bands = -(-M // BAND_ROWS)
+    if bands > MAX_GRID:
+        raise ValueError(f"M = {M} needs {bands} bands, over {MAX_GRID}")
+    n_tiles = -(-N // TILE_COLS)
+    splits, waves = 1, -(-bands // num_sms)
+    for s in range(2, min(n_tiles, num_sms, MAX_GRID) + 1):
+        w = -(-bands * s // num_sms)
+        if w * splits < waves * s:        # w / s < waves / splits
+            splits, waves = s, w
+    k_pad = max(PAD_ROWS, -(-K // PAD_ROWS) * PAD_ROWS)
+    return LaunchPlan(bands=bands, splits=splits, k_pad=k_pad,
+                      k_chunk=min(k_pad, CHUNK_ROWS),
+                      vec=aligned and N % 8 == 0)
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The built and loaded kernel library (built on first call)."""
@@ -77,28 +148,34 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     lib.gf256_init.argtypes = []
     lib.gf256_init.restype = ctypes.c_int
+    lib.gf256_geometry.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.gf256_geometry.restype = None
     lib.gf256_matmul_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
-        ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_int, ctypes.c_void_p]
     lib.gf256_matmul_launch.restype = ctypes.c_int
     lib.gf256_error_string.argtypes = [ctypes.c_int]
     lib.gf256_error_string.restype = ctypes.c_char_p
+    geometry = (ctypes.c_int * 6)()
+    lib.gf256_geometry(geometry)
+    want = (BAND_ROWS, TILE_COLS, PAD_ROWS, CHUNK_ROWS, SMEM_PER_ROW,
+            RING_BYTES)
+    if tuple(geometry) != want:
+        raise RuntimeError(f"{SOURCE.name} has geometry {tuple(geometry)}, "
+                           f"the wrapper {want}")
     return lib
 
 
 @functools.lru_cache(maxsize=None)
-def mul_table(device: torch.device) -> torch.Tensor:
-    """The 256 x 256 GF(2^8) product table, row-major (entry a*256+b = a.b),
-    on ``device``; the kernel stages it in shared memory.  The first call
-    for a device also lets the kernel use that much shared memory there."""
-    from ..coding.gf import GF8   # here: repro_torch.coding imports this module
-
+def device_sms(device: torch.device) -> int:
+    """SMs of ``device``.  The first call for a device also lets the kernel
+    use its shared memory there (``gf256_init``)."""
     lib = library()
     with torch.cuda.device(device):
         _check(lib, lib.gf256_init(), f"gf256_init on {device}")
-    x = np.arange(256)
-    return torch.from_numpy(GF8.mul(x[:, None], x[None, :])).to(device)
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def gf_matmul_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -119,13 +196,15 @@ def gf_matmul_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     out = torch.empty((M, N), dtype=torch.uint8, device=a.device)
     if M == 0 or N == 0:
         return out
-    table = mul_table(a.device)
+    plan = launch_plan(M, K, N, device_sms(a.device),
+                       aligned=b.data_ptr() % 8 == 0 and out.data_ptr() % 8 == 0)
     lib = library()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.gf256_matmul_launch(a.data_ptr(), b.data_ptr(),
-                                      out.data_ptr(), table.data_ptr(),
-                                      M, K, N, stream)
+                                      out.data_ptr(), M, K, N, plan.k_pad,
+                                      plan.k_chunk, plan.bands, plan.splits,
+                                      int(plan.vec), stream)
     _check(lib, err, f"gf256_matmul launch at (M, K, N) = {(M, K, N)}")
     gf_matmul_cuda.launches += 1
     return out

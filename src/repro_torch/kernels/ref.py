@@ -83,3 +83,56 @@ def gf_matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
             c = c | (planes[t] << t)
         out[:, n0:n0 + nc] = c.to(torch.uint8)
     return out
+
+
+def gf_bitmatrix(a: torch.Tensor) -> torch.Tensor:
+    """The GF(2) matrix of multiplication by A: T (8M, 8K) uint8 0/1 with
+    T[8m+i, 8k+j] = bit i of A[m,k] . x^j (mod 0x11D).
+
+    Multiplying by a in GF(2^8) is GF(2)-linear, so bit i of C[m,n] is the
+    parity of sum_{k,j} T[8m+i, 8k+j] * (bit j of B[k,n]).  This is the
+    matrix the CUDA kernel builds in shared memory, band by band.
+    """
+    if a.dim() != 2 or a.dtype != torch.uint8:
+        raise ValueError(f"need a uint8 matrix, got {a.dtype} "
+                         f"{tuple(a.shape)}")
+    M, K = a.shape
+    v = a.to(torch.int32)
+    powers = []                                   # a . x^j, j = 0..7
+    for _ in range(8):
+        powers.append(v)
+        v = ((v << 1) & 0xFF) ^ torch.where((v & 0x80) != 0, 0x1D, 0)
+    p = torch.stack(powers, dim=-1)               # (M, K, 8): [m, k, j]
+    shifts = torch.arange(8, device=a.device, dtype=torch.int32)
+    bits = (p.unsqueeze(1) >> shifts.view(1, 8, 1, 1)) & 1  # [m, i, k, j]
+    return bits.reshape(8 * M, 8 * K).to(torch.uint8)
+
+
+def gf_matmul_bitmatrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """C = A @ B over GF(2^8) by the kernel's bit-matrix algorithm:
+    C_bits (8M, N) = T (8M, 8K) . B_bits (8K, N) mod 2, with T from
+    ``gf_bitmatrix`` and B_bits[8k+j, n] = bit j of B[k,n].
+
+    The product is a float32 matmul of 0/1 matrices, exact while the counts
+    (at most 8K) stay below 2^24, taken in column chunks of the payload.
+    """
+    check_operands(a, b)
+    M, K = a.shape
+    N = b.shape[1]
+    if K >= _MAX_K:
+        raise ValueError(f"K={K} too large for exact float32 bit counts")
+    out = torch.empty((M, N), dtype=torch.uint8, device=a.device)
+    if M == 0 or N == 0:
+        return out
+    t = gf_bitmatrix(a).to(torch.float32)
+    shifts = torch.arange(8, device=a.device, dtype=torch.int32)
+    weights = (1 << shifts).view(1, 8, 1)
+    step = max(1, _CHUNK_ELEMS // (8 * max(M, K)))
+    for n0 in range(0, N, step):
+        bc = b[:, n0:n0 + step].to(torch.int32)
+        nc = bc.shape[1]
+        bbits = ((bc.unsqueeze(1) >> shifts.view(1, 8, 1)) & 1) \
+            .reshape(8 * K, nc).to(torch.float32)  # row 8k+j = bit j of B[k]
+        cbits = (t @ bbits).to(torch.int32).view(M, 8, nc) & 1
+        out[:, n0:n0 + nc] = (cbits * weights).sum(dim=1).to(torch.uint8)
+    return out

@@ -129,10 +129,16 @@ def test_operand_checks(fn):
 
 def test_kernel_build_is_lazy_and_targets_hopper():
     """Importing the kernel module builds nothing; the build targets
-    sm_90a from the source in the package."""
+    sm_90a from the source in the package, whose kernel runs the bit-matrix
+    product on int8 wgmma."""
     km = importlib.import_module("repro_torch.kernels.gf_matmul")
 
     assert km.library.cache_info().currsize == 0
+    assert km.device_sms.cache_info().currsize == 0
     assert "arch=compute_90a,code=sm_90a" in km.NVCC_FLAGS
     assert km.SOURCE.is_file() and km.SOURCE.suffix == ".cu"
-    assert "gf256_matmul_launch" in km.SOURCE.read_text()
+    src = km.SOURCE.read_text()
+    for entry in ("gf256_init", "gf256_geometry", "gf256_matmul_launch",
+                  "gf256_error_string"):
+        assert f'extern "C"' in src and f" {entry}(" in src
+    assert "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8" in src
