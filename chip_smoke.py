@@ -15,7 +15,8 @@ nonzero:
    (960 MiB; alpha = 48, beta = 8): the file is distributed onto 20 nodes
    on the card, then one node is failed and repaired with each of star,
    fr, tr and ftr in turn.  Each repair samples a U[10,120] overlay, plans
-   it on the host and runs the plan through the kernel; the file is then
+   it on the card through the planning tier (the simulator's default
+   ``engine="batched"``) and runs the plan through the kernel; the file is then
    decoded from the newcomer plus k-1 other nodes and must equal the
    original bit for bit; the same repair re-run from the same random
    state with the plain PyTorch matmul on the card must give the same
@@ -32,8 +33,22 @@ nonzero:
    kernel's own bit-matrix product as a yardstick (``int8_gemm_ms``).  The
    kernel's ``ms`` in the record is the main path's own launches, timed by
    CUDA events around each call.
+4. Bulk planning on the card: ``plan_many`` with the planning tier
+   (``repro_torch.core.torch_engine``) at the paper's deployments (Fig. 7:
+   MSR n=20 k=5 d=10, B=4096; Fig. 8: the interior point halfway from MSR
+   to MBR, B=4096; Fig. 6: d=19, B=1024; and 300 overlays of fan-outs
+   5..19, bucketed by d), caps U[10,120] drawn from ``--seed`` and copied
+   to the card at once.  For each run and scheme: cold and warm wall
+   times (ending in a synchronize), plans per second, the engine's own
+   device reads, the warm time with plain bisection (one midpoint per
+   oracle call) beside the speculative one, and 256 lanes chosen by the
+   seed (every lane for star) held against the scalar planners on the
+   host: parents equal, star times bitwise, the rest within 1e-9 relative;
+   a lane whose tree differs passes only if both trees take the same time
+   within 1e-9 (a tie), and ties are counted.
 
-The next-to-last line is the ``{"kernels": [...]}`` record; the last line is
+The lines before the last are the ``{"planning": [...]}`` and
+``{"kernels": [...]}`` records; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits nonzero and prints
 no result.
 """
@@ -41,7 +56,9 @@ from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import json
+import math
 import pathlib
 import random
 import subprocess
@@ -60,6 +77,21 @@ BLOCK_BYTES = 4 * MIB
 SCHEMES = ("star", "fr", "tr", "ftr")
 PROB_SAMPLES = 64
 INT8_CHUNK = 1 << 16             # payload columns per torch._int_mm call
+# phase 4: (run, n, k, d or None for ragged, alpha: "msr" or "interior",
+# batch, schemes, source of the deployment)
+PLAN_RUNS = [
+    ("fig7-msr", 20, 5, 10, "msr", 4096,
+     ("star", "fr", "tr", "ftr", "shah"), "benchmarks/fig7_bandwidth.py:14"),
+    ("fig8-interior", 20, 5, 10, "interior", 4096,
+     ("star", "fr", "tr", "ftr", "shah"), "benchmarks/fig8_alpha.py:15,35"),
+    ("fig6-d19", 20, 5, 19, "msr", 1024,
+     ("star", "fr", "tr", "ftr", "shah"), "benchmarks/fig6_d_sweep.py:16"),
+    ("ragged", 20, 5, None, "msr", 300, ("fr", "ftr"),
+     "src/repro/core/api.py:410"),
+]
+PLAN_M = 8000.0
+PLAN_CHECK = 256                 # lanes held against the scalar planners
+REL_TOL = 1e-9
 
 
 def log(*parts) -> None:
@@ -145,6 +177,174 @@ def rand_u8(shape, gen) -> torch.Tensor:
                          generator=gen)
 
 
+def rel_ok(got: float, want: float) -> bool:
+    """Equal within 1e-9 relative (1e-9 absolute below 1); infinities
+    only as themselves."""
+    if math.isinf(got) or math.isinf(want):
+        return got == want
+    return abs(got - want) <= REL_TOL * max(1.0, abs(want))
+
+
+def rel_err(got: float, want: float) -> float:
+    if math.isinf(got) or math.isinf(want):
+        return 0.0 if got == want else math.inf
+    return abs(got - want) / max(1.0, abs(want))
+
+
+def plan_params(core, n: int, k: int, d: int, point: str):
+    """MSR, or the interior point halfway from MSR to MBR (Fig. 8)."""
+    if point == "msr":
+        return core.CodeParams.msr(n=n, k=k, d=d, M=PLAN_M)
+    a_msr = PLAN_M / k
+    a_mbr, _ = core.mbr_point(PLAN_M, k, d)
+    return core.CodeParams(n=n, k=k, d=d, M=PLAN_M,
+                           alpha=a_msr + 0.5 * (a_mbr - a_msr))
+
+
+def draw_caps(rng: np.random.Generator, B: int, d: int) -> np.ndarray:
+    """B overlays of d providers, links U[10,120] (Fig. 7's uniform)."""
+    caps = rng.uniform(10.0, 120.0, size=(B, d + 1, d + 1))
+    idx = np.arange(d + 1)
+    caps[:, idx, idx] = 0.0
+    return caps
+
+
+def check_lanes(core, scheme: str, res, nets, params_of, lanes) -> dict:
+    """Hold the lanes ``lanes`` of the card's batch ``res`` against the
+    scalar planners on the host, under the cross-engine contract; raise on
+    the first lane that breaks it.  A lane whose tree differs is a tie only
+    if both trees take the same time within 1e-9 (the scheme's own time of
+    a tree: ``tree_time_uniform`` for tr, ``eval_tree`` for ftr)."""
+    host = {f: getattr(res, f).cpu() for f in
+            ("times", "traffic", "betas", "parents")}
+    host["lower_bounds"] = (None if res.lower_bounds is None
+                            else res.lower_bounds.cpu())
+    plans = core.plans_from_batch(res, params_of(0))
+    ties, max_err, scalar_s = [], 0.0, 0.0
+    for b in lanes:
+        net, pb = nets[b], params_of(b)
+        d = net.d
+        t0 = time.perf_counter()
+        ps = core.plan(net, pb, scheme, engine="scalar")
+        scalar_s += time.perf_counter() - t0
+        got_t = float(host["times"][b])
+        parent = {u: int(host["parents"][b, u]) for u in range(1, d + 1)}
+        if parent != ps.parent:
+            if scheme == "tr":
+                a = core.tree_time_uniform(parent, net, pb)
+                w = core.tree_time_uniform(ps.parent, net, pb)
+            elif scheme == "ftr":
+                region = (core.msr_region(pb) if pb.is_msr
+                          else core.heuristic_region(pb))
+                a = core.eval_tree(parent, net, pb, region, iters=50)[0]
+                w = core.eval_tree(ps.parent, net, pb, region, iters=50)[0]
+            else:
+                raise AssertionError(f"{scheme} lane {b}: star parents")
+            if not (rel_ok(a, w) and rel_ok(got_t, ps.time)):
+                raise AssertionError(
+                    f"{scheme} lane {b}: tree {parent} takes {a}, the "
+                    f"scalar tree {ps.parent} {w}; times {got_t} vs "
+                    f"{ps.time}")
+            ties.append(b)
+            continue
+        if scheme == "star" and got_t != ps.time:
+            raise AssertionError(f"star lane {b}: {got_t} != {ps.time}")
+        pairs = [(got_t, ps.time),
+                 (float(host["traffic"][b]), ps.total_traffic)]
+        pairs += list(zip(host["betas"][b, :d].tolist(), ps.betas))
+        if ps.lower_bound is not None:
+            pairs.append((float(host["lower_bounds"][b]), ps.lower_bound))
+        for g, w in pairs:
+            max_err = max(max_err, rel_err(g, w))
+            if not rel_ok(g, w):
+                raise AssertionError(f"{scheme} lane {b}: {g} vs {w}")
+        plans[b].validate(net)
+    return dict(lanes_checked=len(lanes), tie_lanes=len(ties), ties=ties,
+                max_rel_err=max_err,
+                scalar_ms_per_plan=scalar_s / len(lanes) * 1e3)
+
+
+def planning_phase(seed: int) -> list:
+    """Phase 4: bulk planning through the tier on the card (see the module
+    docstring).  Returns one record per run and scheme."""
+    import repro_torch.core as core
+    from repro_torch.core import torch_engine
+
+    def timed(fn):
+        s0 = torch_engine.syncs
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3, torch_engine.syncs - s0
+
+    rows = []
+    for i, (run, n, k, d, point, B, schemes, source) in enumerate(PLAN_RUNS):
+        rng = np.random.default_rng([seed, i])
+        if d is None:
+            ds = rng.integers(5, 20, size=B)
+            nets = [core.OverlayNetwork(draw_caps(rng, 1, int(dd))[0].tolist())
+                    for dd in ds]
+            params = plan_params(core, n, k, int(ds.max()), point)
+            batch = nets
+            params_of = (lambda b, nets=nets, params=params:
+                         dataclasses.replace(params, d=nets[b].d))
+        else:
+            caps = draw_caps(rng, B, d)
+            batch = torch.from_numpy(caps).to(DEVICE)       # one copy
+            nets = [core.OverlayNetwork(c.tolist()) for c in caps]
+            params = plan_params(core, n, k, d, point)
+            params_of = lambda b, params=params: params
+        for scheme in schemes:
+            plan = (lambda: core.plan_many(batch, params, scheme))
+            res, cold_ms, _ = timed(plan)
+            res, warm_ms, syncs = timed(plan)
+            if not (res.engine == "batched"
+                    and res.times.device.type == torch.device(DEVICE).type
+                    and all(t.dtype == torch.float64 for t in
+                            (res.times, res.traffic, res.betas))
+                    and res.parents.dtype == torch.int64
+                    and (res.lower_bounds is None
+                         or res.lower_bounds.dtype == torch.float64)):
+                raise AssertionError(f"{run}/{scheme}: malformed batch")
+            # the same plans with one bisection midpoint per oracle call
+            levels = torch_engine._SPEC_LEVELS
+            torch_engine._SPEC_LEVELS = 1
+            try:
+                plain, plain_ms, plain_syncs = timed(plan)
+            finally:
+                torch_engine._SPEC_LEVELS = levels
+            # the same midpoint path, so the same plans: bitwise unless the
+            # oracle's sums depend on how many rows a call carries
+            plain_bitwise = all(torch.equal(getattr(plain, f), getattr(res, f))
+                                for f in ("parents", "times", "betas"))
+            if not (torch.equal(plain.parents, res.parents) and all(
+                    rel_ok(g, w) for f in ("times", "betas")
+                    for g, w in zip(getattr(plain, f).flatten().tolist(),
+                                    getattr(res, f).flatten().tolist()))):
+                raise AssertionError(f"{run}/{scheme}: plain bisection "
+                                     f"planned otherwise")
+            lanes = (range(B) if scheme == "star" else
+                     sorted(rng.choice(B, size=min(PLAN_CHECK, B),
+                                       replace=False).tolist()))
+            check = check_lanes(core, scheme, res, nets, params_of, lanes)
+            row = dict(run=run, scheme=scheme, source=source, B=B,
+                       d=d if d is not None else "5..19",
+                       alpha=params.alpha, cold_ms=cold_ms, warm_ms=warm_ms,
+                       plans_per_s=B / warm_ms * 1e3, syncs=syncs,
+                       spec_levels=levels, plain_bisection_ms=plain_ms,
+                       plain_bisection_syncs=plain_syncs,
+                       plain_bitwise=plain_bitwise, **check)
+            rows.append(row)
+            log(f"  {run}/{scheme}: B={B} cold {cold_ms:.1f} ms, warm "
+                f"{warm_ms:.1f} ms ({row['plans_per_s']:.0f} plans/s, "
+                f"{syncs} device reads), plain bisection {plain_ms:.1f} ms; "
+                f"{check['lanes_checked']} lanes within the contract, "
+                f"{check['tie_lanes']} ties, max rel err "
+                f"{check['max_rel_err']:.2e}, scalar "
+                f"{check['scalar_ms_per_plan']:.3f} ms/plan")
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -165,6 +365,15 @@ def main(argv=None) -> int:
                                      gf_matmul_cuda, gf_matmul_ref)
     from repro_torch.storage import RlncSimulator, uniform
     kmod = importlib.import_module("repro_torch.kernels.gf_matmul")
+    simmod = importlib.import_module("repro_torch.storage.simulator")
+    planned = []                 # (engine, device type) of every repair plan
+
+    def plans_from_batch(res, params):
+        planned.append((res.engine, res.times.device.type))
+        return core_plans_from_batch(res, params)
+
+    core_plans_from_batch = simmod.plans_from_batch
+    simmod.plans_from_batch = plans_from_batch
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -214,6 +423,9 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         [(failed, providers, plan)] = sim.plan_rounds(scheme, uniform(), 1)
         t_plan = time.perf_counter() - t0
+        if planned[-1] != ("batched", "cuda"):
+            raise AssertionError(f"{scheme}: planned by {planned[-1]}, not "
+                                 f"the batched engine on the card")
         t0 = time.perf_counter()
         sim.execute_plan(plan, failed, providers)
         torch.cuda.synchronize()
@@ -244,7 +456,8 @@ def main(argv=None) -> int:
         plain = RlncSimulator.from_state(params, file_blocks, before[0],
                                          np_rng, py_rng, matmul=gf_matmul_ref)
         [(f2, p2, plan2)] = plain.plan_rounds(scheme, uniform(), 1)
-        if (f2, p2, plan2.parent) != (failed, providers, plan.parent):
+        if (f2, p2, plan2.parent) != (failed, providers, plan.parent) or \
+                planned[-1] != ("batched", "cuda"):
             raise AssertionError(f"{scheme}: the rerun drew another repair")
         plain.execute_plan(plan2, f2, p2)
         if not (torch.equal(plain.nodes[f2].vectors, newcomer.vectors)
@@ -399,9 +612,17 @@ def main(argv=None) -> int:
         "shapes": rows,
     }]
     results["kernels"] = kernels
+
+    # -- 4. bulk planning through the tier on the card -----------------------
+    log("bulk planning (torch_engine on the card):")
+    t0 = time.perf_counter()
+    results["planning"] = planning_phase(args.seed)
+    results["planning_s"] = time.perf_counter() - t0
+    log(f"bulk planning: {results['planning_s']:.1f} s")
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(results, indent=1))
+    log(json.dumps({"planning": results["planning"]}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -114,3 +114,12 @@ def shah_region_thresholds(params: CodeParams, beta_max: float) -> float:
         need = min((params.d - params.k + j) * b, params.alpha)
         gamma = max(gamma, need + (params.k - j) * beta_max)
     return gamma
+
+
+def theorem6_example():
+    """The two incomparable maximal regions of Example 1 (n=5, k=3, d=4,
+    M=12, alpha=6): there is no maximum region (Theorem 6)."""
+    p = CodeParams(n=5, k=3, d=4, M=12, alpha=6)
+    d1 = FeasibleRegion(k=3, d=4, x=(1, 5, 6))
+    d2 = FeasibleRegion(k=3, d=4, x=(2, 4, 6))
+    return p, d1, d2

@@ -60,7 +60,9 @@ from .regions import FeasibleRegion
 __all__ = [
     "level_cut_batch",
     "level_cut",
+    "min_traffic_batch",
     "tree_min_traffic",
+    "tree_traffic_batch",
 ]
 
 
@@ -121,8 +123,50 @@ def level_cut(ub: Sequence[float], region: FeasibleRegion) -> List[float]:
 
 
 # ---------------------------------------------------------------------------
+# Star case (FR): problem (1)'s secondary objective
+# ---------------------------------------------------------------------------
+
+def min_traffic_batch(t: np.ndarray, direct: np.ndarray,
+                      region: FeasibleRegion, alpha: float,
+                      lanes: Optional[np.ndarray] = None) -> np.ndarray:
+    """Traffic-minimal star betas at the per-lane times ``t`` over direct
+    capacities ``direct`` (B, d).  Lanes outside ``lanes``, or with a
+    non-finite ``t``, return zeros."""
+    t = np.asarray(t, dtype=np.float64)
+    direct = np.asarray(direct, dtype=np.float64)
+    live = np.isfinite(t) if lanes is None else (lanes & np.isfinite(t))
+    ub = np.minimum(np.where(live, t, 0.0)[:, None] * direct, alpha)
+    betas = level_cut_batch(ub, region, lanes=live)
+    return np.where(live[:, None], betas, 0.0)
+
+
+# ---------------------------------------------------------------------------
 # Tree case (FTR): traffic-minimal betas on a fixed regeneration tree
 # ---------------------------------------------------------------------------
+
+def tree_traffic_batch(t: np.ndarray, parents: np.ndarray, caps: np.ndarray,
+                       region: FeasibleRegion, alpha: float,
+                       lanes: Optional[np.ndarray] = None) -> np.ndarray:
+    """Traffic-minimal betas at the per-lane times ``t`` on the trees
+    ``parents`` (B, d+1) over capacity tensors ``caps`` (B, d+1, d+1): one
+    water-fill at ``t`` (the planning tier's, run on the host) and its
+    level cut.  Lanes outside ``lanes``, or with a non-finite ``t``, return
+    zeros."""
+    import torch
+
+    from . import torch_engine as te
+
+    t = np.asarray(t, dtype=np.float64)
+    live = np.isfinite(t) if lanes is None else (lanes & np.isfinite(t))
+    inc, ec, chain = te._tree_arrays(
+        torch.from_numpy(np.asarray(caps, dtype=np.float64)),
+        torch.from_numpy(np.asarray(parents, dtype=np.int64)))
+    _, wf = te._tree_feasible(torch.from_numpy(np.where(live, t, 1.0)), inc,
+                              ec, torch.tensor(region.x, dtype=torch.float64),
+                              alpha, chain)
+    betas = level_cut_batch(wf.numpy(), region, lanes=live)
+    return np.where(live[:, None], betas, 0.0)
+
 
 def tree_min_traffic(wf: Sequence[float], region: FeasibleRegion,
                      ) -> List[float]:

@@ -29,13 +29,15 @@ def _to_tensor(x: np.ndarray, device: torch.device) -> torch.Tensor:
 
 def from_reference_state(params: CodeParams, file_blocks: np.ndarray,
                          nodes: NodeArrays, np_rng_state: dict,
-                         py_rng_state: tuple,
-                         device: DeviceLike = None) -> RlncSimulator:
+                         py_rng_state: tuple, device: DeviceLike = None,
+                         engine: str = "batched") -> RlncSimulator:
     """The port's ``RlncSimulator`` holding the reference's state.
 
     ``nodes`` maps node id to (vectors, payload) uint8 arrays;
     ``np_rng_state`` is ``np_rng.bit_generator.state`` and ``py_rng_state``
-    is ``rng.getstate()`` of the reference simulator."""
+    is ``rng.getstate()`` of the reference simulator.  To continue bit for
+    bit, plan on the reference simulator's ``engine``: the engines list a
+    tree's edges in another order, and the relays concatenate in it."""
     dev = resolve_device(device)
     bit_gen = getattr(np.random, np_rng_state["bit_generator"])()
     bit_gen.state = np_rng_state
@@ -45,7 +47,7 @@ def from_reference_state(params: CodeParams, file_blocks: np.ndarray,
               for i, (v, p) in nodes.items()}
     return RlncSimulator.from_state(params, _to_tensor(file_blocks, dev),
                                     blocks, np.random.Generator(bit_gen), rng,
-                                    field=GF8, device=dev)
+                                    field=GF8, device=dev, engine=engine)
 
 
 def to_reference_state(sim: RlncSimulator

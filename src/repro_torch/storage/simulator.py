@@ -5,7 +5,7 @@ Two levels of fidelity, as in ``repro.storage.simulator``:
 * ``compare_schemes`` — planning-level Monte Carlo: per round, sample an
   overlay, plan with each scheme, record regeneration time and total repair
   traffic normalized against STAR on the *same* network (Figs 6-8).
-  Planning is host code (the scalar planners).
+  The batched engine plans every trial in one call on the card.
 * ``RlncSimulator`` — data-plane simulation with real GF(2^8) coding
   vectors and payload, held on the card: executes plans block by block
   (provider encode, interior relay, newcomer regenerate) through the GF
@@ -26,10 +26,12 @@ import time
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from ..coding import GF, GF8, RLNC, CodedBlocks
 from ..coding.rlnc import Matmul
-from ..core import CodeParams, RepairPlan, plan, plan_many
+from ..core import (CodeParams, RepairPlan, caps_tensor, get_scheme, plan,
+                    plan_many, plans_from_batch)
 from ..device import DeviceLike
 from .capacities import CapSampler
 
@@ -51,18 +53,45 @@ class SchemeStats:
 
 def compare_schemes(params: CodeParams, sampler: CapSampler,
                     schemes: Sequence[str], trials: int, seed: int = 0,
-                    witness: str = "exact") -> Dict[str, SchemeStats]:
-    """Monte-Carlo scheme comparison over ``trials`` sampled overlays with
-    the scalar planners: the statistics of the reference's
-    ``compare_schemes(..., engine="scalar")``."""
+                    engine: str = "batched", witness: str = "exact",
+                    device: DeviceLike = None) -> Dict[str, SchemeStats]:
+    """Monte-Carlo scheme comparison over ``trials`` sampled overlays.
+
+    ``engine="batched"`` (default) plans every trial of a scheme in one
+    :func:`~repro_torch.core.plan_many` call on ``device`` (the card unless
+    ``device="cpu"``), the STAR baseline on the same engine; a scheme
+    without a batched planner (rctree) takes the scalar planner, with the
+    registry's warning, and says so in ``SchemeStats.engine``.
+    ``engine="scalar"`` is the per-network loop.  ``plan_seconds`` is wall
+    time per trial, ending when the device's work is done.
+    """
+    if engine not in ("batched", "scalar"):
+        raise ValueError(f"unknown engine {engine!r}")
     rng = random.Random(seed)
     nets = [sampler(rng, params.d) for _ in range(trials)]
-    acc = {s: [0.0, 0.0, 0.0, 0.0, 0.0] for s in schemes}
-    for net in nets:
-        base = plan(net, params, "star")
+    if engine == "batched":
+        caps = caps_tensor(nets, device)
+        base = plan_many(caps, params, "star", engine=engine,
+                         device=caps.device)
+        out: Dict[str, SchemeStats] = {}
         for s in schemes:
             t0 = time.perf_counter()
-            p = plan(net, params, s, witness=witness)
+            res = plan_many(caps, params, s, engine=engine, witness=witness,
+                            device=caps.device)
+            times, traffic = res.times.to(caps.device), \
+                res.traffic.to(caps.device)
+            stats = torch.stack([times.mean(), (times / base.times).mean(),
+                                 traffic.mean(),
+                                 (traffic / base.traffic).mean()]).tolist()
+            dt = time.perf_counter() - t0
+            out[s] = SchemeStats(s, *stats, dt / trials, engine=res.engine)
+        return out
+    acc = {s: [0.0, 0.0, 0.0, 0.0, 0.0] for s in schemes}
+    for net in nets:
+        base = plan(net, params, "star", engine="scalar")
+        for s in schemes:
+            t0 = time.perf_counter()
+            p = plan(net, params, s, engine="scalar", witness=witness)
             dt = time.perf_counter() - t0
             a = acc[s]
             a[0] += p.time
@@ -83,12 +112,15 @@ def compare_schemes(params: CodeParams, sampler: CapSampler,
 
 class RlncSimulator:
     """Distributed storage system with actual RLNC state per node, on one
-    device (the card unless ``device="cpu"``)."""
+    device (the card unless ``device="cpu"``).  ``engine="batched"``
+    (default) plans on that device through the planning tier;
+    ``engine="scalar"`` plans with the scalar planners on the host."""
 
     def __init__(self, params: CodeParams, field: GF = GF8,
                  block_bytes: int = 4, seed: int = 0,
-                 matmul: Optional[Matmul] = None, device: DeviceLike = None):
-        self._setup(params, field, matmul, device)
+                 matmul: Optional[Matmul] = None, device: DeviceLike = None,
+                 engine: str = "batched"):
+        self._setup(params, field, matmul, device, engine)
         self.np_rng = np.random.default_rng(seed)
         self.rng = random.Random(seed + 1)
         M, n, alpha = int(params.M), params.n, int(round(params.alpha))
@@ -98,11 +130,14 @@ class RlncSimulator:
                                          self.np_rng)))
 
     def _setup(self, params: CodeParams, field: GF, matmul: Optional[Matmul],
-               device: DeviceLike) -> None:
+               device: DeviceLike, engine: str) -> None:
         if abs(params.M - round(params.M)) > 1e-9 or \
            abs(params.alpha - round(params.alpha)) > 1e-9:
             raise ValueError("data-plane simulation needs integral M, alpha")
+        if engine not in ("batched", "scalar"):
+            raise ValueError(f"unknown engine {engine!r}")
         self.params = params
+        self.engine = engine
         self.field = field
         self.rl = RLNC(field, matmul=matmul, device=device)
         self.device = self.rl.device
@@ -112,11 +147,12 @@ class RlncSimulator:
                    nodes: Dict[int, CodedBlocks],
                    np_rng: np.random.Generator, rng: random.Random,
                    field: GF = GF8, matmul: Optional[Matmul] = None,
-                   device: DeviceLike = None) -> "RlncSimulator":
+                   device: DeviceLike = None,
+                   engine: str = "batched") -> "RlncSimulator":
         """A simulator over given state: the file, the nodes' blocks and the
         two random streams (see ``storage.convert``)."""
         sim = cls.__new__(cls)
-        sim._setup(params, field, matmul, device)
+        sim._setup(params, field, matmul, device, engine)
         sim.np_rng = np_rng
         sim.rng = rng
         sim.file_blocks = file_blocks
@@ -193,15 +229,24 @@ class RlncSimulator:
         [(failed, providers, plan), ...] ready for ``execute_plan``.
         """
         drawn = [self._sample_round(sampler) for _ in range(rounds)]
-        plans = plan_many([net for _, _, net in drawn], self.params, scheme)
+        plans = self._plan([net for _, _, net in drawn], scheme)
         return [(f, p, pl) for (f, p, _), pl in zip(drawn, plans)]
 
     def repair_round(self, scheme: str, sampler: CapSampler,
                      failed: Optional[int] = None) -> RepairPlan:
         failed, providers, net = self._sample_round(sampler, failed)
-        pl = plan(net, self.params, scheme)
+        [pl] = self._plan([net], scheme)
         self.execute_plan(pl, failed, providers)
         return pl
+
+    def _plan(self, nets: list, scheme: str) -> List[RepairPlan]:
+        """One plan per overlay, planned in one call: on the simulator's
+        device by the batched engine where the scheme has one (rctree takes
+        the scalar planner), on the host by the scalar engine."""
+        eng = "auto" if self.engine == "batched" else "scalar"
+        res = plan_many(nets, self.params, scheme, engine=eng,
+                        device=self.device)
+        return plans_from_batch(res, self.params)
 
     def reconstruction_probability(self, samples: int = 0) -> float:
         """Fraction of k-subsets (all, or ``samples`` random ones) whose
@@ -222,15 +267,30 @@ def reconstruction_vs_rounds(params: CodeParams, scheme: str,
                              sampler: CapSampler, rounds: int, trials: int,
                              field: GF = GF8, seed: int = 0,
                              subset_samples: int = 0,
+                             engine: str = "batched",
                              device: DeviceLike = None) -> List[float]:
-    """Fig. 10: mean reconstruction probability after each repair round,
-    planning round by round (the reference's ``engine="scalar"`` path)."""
+    """Fig. 10: mean reconstruction probability after each repair round.
+
+    With the batched engine each trial's rounds are drawn first and planned
+    in one call: a plan depends only on its overlay, and the overlay stream
+    is not the data plane's, so the node states equal those of planning
+    round by round.  That holds only while nothing else draws from
+    ``sim.rng`` between rounds, so with ``subset_samples > 0`` (the subset
+    draws come from that stream), and for schemes without a batched planner
+    (rctree), the rounds are planned one by one."""
     probs = [0.0] * (rounds + 1)
     for tr in range(trials):
         sim = RlncSimulator(params, field=field, seed=seed + 1000 * tr,
-                            device=device)
+                            device=device, engine=engine)
         probs[0] += sim.reconstruction_probability(subset_samples)
-        for r in range(1, rounds + 1):
-            sim.repair_round(scheme, sampler)
-            probs[r] += sim.reconstruction_probability(subset_samples)
+        if (engine == "batched" and subset_samples == 0
+                and get_scheme(scheme).batched is not None):
+            planned = sim.plan_rounds(scheme, sampler, rounds)
+            for r, (failed, providers, pl) in enumerate(planned, start=1):
+                sim.execute_plan(pl, failed, providers)
+                probs[r] += sim.reconstruction_probability(subset_samples)
+        else:
+            for r in range(1, rounds + 1):
+                sim.repair_round(scheme, sampler)
+                probs[r] += sim.reconstruction_probability(subset_samples)
     return [p / trials for p in probs]

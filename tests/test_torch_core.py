@@ -91,38 +91,28 @@ def test_lp_witness_matches_reference(scheme, interior):
 
 
 def test_plan_many_matches_reference_scalar_batch():
+    """The scalar engine's packed batch: every field of the reference's
+    ``plan_many(engine="scalar")``, on the CPU, with the plans alongside."""
     rp = _params(ref_core, 6, 3, True)
     pp = _params(port_core, 6, 3, True)
     caps = _caps(5, 5, 6)
     nets = [port_core.OverlayNetwork(c.tolist()) for c in caps]
     for s in SCHEMES:
         want = ref_core.plan_many(caps, rp, s, engine="scalar")
-        got = port_core.plan_many(nets, pp, s)
-        assert len(got) == len(want.plans) == 5
-        for b, (g, w) in enumerate(zip(got, want.plans)):
+        got = port_core.plan_many(nets, pp, s, engine="scalar")
+        assert (got.scheme, got.engine) == (want.scheme, want.engine)
+        for f in ("times", "traffic", "betas", "parents", "lower_bounds"):
+            g, w = getattr(got, f), getattr(want, f)
+            assert (g is None) == (w is None), f"{s}: {f}"
+            if w is not None:
+                assert g.device.type == "cpu"
+                np.testing.assert_array_equal(g.numpy(), w, err_msg=f"{s}: {f}")
+        assert len(got.plans) == len(want.plans) == 5
+        for b, (g, w) in enumerate(zip(got.plans, want.plans)):
             _same_plan(g, w, f"{s} row {b}")
         again = port_core.plan_many(iter(nets), pp, s, engine="scalar")
-        assert [p.time for p in again] == [p.time for p in got]
-
-
-def test_engines_outside_the_slice_raise():
-    pp = _params(port_core, 4, 2, False)
-    caps = _caps(1, 2, 4)
-    net = port_core.OverlayNetwork(caps[0].tolist())
-    nets = [net, port_core.OverlayNetwork(caps[1].tolist())]
-    with pytest.raises(NotImplementedError, match="torch_engine"):
-        port_core.plan_many(nets, pp, "fr", engine="batched")
-    with pytest.raises(NotImplementedError):
-        port_core.plan(net, pp, "fr", engine="batched")
-    with pytest.raises(ValueError, match="unknown engine"):
-        port_core.plan_many(nets, pp, "fr", engine="jax")
-    with pytest.raises(ValueError, match="unknown scheme"):
-        port_core.plan(net, pp, "nope")
-    mixed = [net, port_core.OverlayNetwork(_caps(2, 1, 5)[0].tolist())]
-    with pytest.raises(ValueError, match="d=4"):
-        port_core.plan_many(mixed, pp, "fr")
-    with pytest.raises(ValueError, match="witness"):
-        port_core.plan(net, pp, "fr", witness="greedy")
+        assert [p.time for p in again.plans] == [p.time for p in got.plans]
+        assert port_core.plans_from_batch(got, pp) == got.plans
 
 
 def test_registry_mirrors_reference():
@@ -130,6 +120,8 @@ def test_registry_mirrors_reference():
     for s in SCHEMES:
         assert (port_core.get_scheme(s).accepts_witness
                 == ref_core.get_scheme(s).accepts_witness)
+        assert ((port_core.get_scheme(s).batched is None)
+                == (ref_core.get_scheme(s).batched is None))
 
 
 def test_register_and_unregister():
@@ -167,3 +159,88 @@ def test_params_helpers(M, k, d, alpha):
     pp = port_core.CodeParams(n=d + 2, k=k, d=d, M=M, alpha=alpha)
     rp = ref_core.CodeParams(n=d + 2, k=k, d=d, M=M, alpha=alpha)
     assert port_core.heuristic_region(pp).x == ref_core.heuristic_region(rp).x
+
+
+# ---------------------------------------------------------------------------
+# Host oracles: brute-force ORT, the information flow graph, extensions
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("d,k", [(3, 2), (4, 2)])
+def test_ort_matches_reference(d, k):
+    """The exhaustive tree search is exact at d <= 4: same trees, same
+    plans."""
+    assert list(port_core.iter_rooted_trees(d)) == \
+        list(ref_core.iter_rooted_trees(d))
+    for interior in (False, True):
+        rp = _params(ref_core, d, k, interior)
+        pp = _params(port_core, d, k, interior)
+        for b, c in enumerate(_caps(50 + d, 2, d)):
+            for name in ("plan_ort_uniform", "plan_ort_flexible"):
+                want = getattr(ref_core, name)(
+                    ref_core.OverlayNetwork(c.tolist()), rp)
+                got = getattr(port_core, name)(
+                    port_core.OverlayNetwork(c.tolist()), pp)
+                _same_plan(got, want, f"{name} row {b}")
+
+
+@pytest.mark.parametrize("scheme", ["fr", "ftr", "rctree"])
+def test_infoflow_matches_reference(scheme):
+    """A history of repairs, each planned by both packages: the same
+    collector flows and MDS verdicts (rctree breaks MDS)."""
+    d, k, n = 4, 2, 6
+    rp = ref_core.CodeParams.msr(n=n, k=k, d=d, M=12.0)
+    pp = port_core.CodeParams.msr(n=n, k=k, d=d, M=12.0)
+    rg = ref_core.InfoFlowGraph(rp, initial_nodes=list(range(1, n + 1)))
+    pg = port_core.InfoFlowGraph(pp, initial_nodes=list(range(1, n + 1)))
+    newcomer = n + 1
+    for r, c in enumerate(_caps(61, 3, d)):
+        failed = sorted(rg.live)[r % n]
+        providers = [i for i in sorted(rg.live) if i != failed][:d]
+        want = ref_core.plan(ref_core.OverlayNetwork(c.tolist()), rp, scheme,
+                             engine="scalar")
+        got = port_core.plan(port_core.OverlayNetwork(c.tolist()), pp, scheme)
+        rg.fail_and_repair(failed, ref_core.event_from_plan(want, newcomer,
+                                                            providers))
+        pg.fail_and_repair(failed, port_core.event_from_plan(got, newcomer,
+                                                             providers))
+        newcomer += 1
+        assert pg.live == rg.live
+        assert pg.worst_collector() == rg.worst_collector()
+        assert pg.mds_holds() == rg.mds_holds()
+    with pytest.raises(ValueError, match="not live"):
+        pg.fail_and_repair(1, port_core.RepairEvent(99, {}, {}))
+
+
+def test_extensions_match_reference():
+    d = 5
+    rp = ref_core.CodeParams.msr(n=8, k=3, d=d, M=600.0)
+    pp = port_core.CodeParams.msr(n=8, k=3, d=d, M=600.0)
+    caps = _caps(71, 3, d)
+    for scheme in ("star", "tr", "ftr"):
+        for c in caps:
+            rn = ref_core.OverlayNetwork(c.tolist())
+            pn = port_core.OverlayNetwork(c.tolist())
+            want = ref_core.plan(rn, rp, scheme, engine="scalar")
+            got = port_core.plan(pn, pp, scheme)
+            assert port_core.store_and_forward_time(got, pn) == \
+                ref_core.store_and_forward_time(want, rn)
+            assert port_core.streaming_time_with_latency(got, pn, 0.1) == \
+                ref_core.streaming_time_with_latency(want, rn, 0.1)
+    for contention in (0.0, 0.7):
+        want = ref_core.plan_multi_failures(
+            rp, [ref_core.OverlayNetwork(c.tolist()) for c in caps],
+            planner=ref_core.plan_fr, contention=contention)
+        got = port_core.plan_multi_failures(
+            pp, [port_core.OverlayNetwork(c.tolist()) for c in caps],
+            planner=port_core.plan_fr, contention=contention)
+        for (gp, gt), (wp, wt) in zip(got, want):
+            assert gt == wt
+            _same_plan(gp, wp, f"multi-failure, contention {contention}")
+
+
+def test_theorem6_example_matches_reference():
+    rp, rd1, rd2 = ref_core.theorem6_example()
+    pp, pd1, pd2 = port_core.theorem6_example()
+    assert (pp.n, pp.k, pp.d, pp.M, pp.alpha) == \
+        (rp.n, rp.k, rp.d, rp.M, rp.alpha)
+    assert (pd1.x, pd2.x) == (rd1.x, rd2.x)

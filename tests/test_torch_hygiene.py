@@ -39,7 +39,10 @@ def test_import_leaves_jax_and_reference_out():
                                "PATH": "/usr/bin:/bin"},
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert len(MODULES) >= 20
+    assert len(MODULES) >= 25
+    assert {f"repro_torch.core.{m}" for m in (
+        "batched", "torch_engine", "infoflow", "ort", "extensions")} \
+        <= set(MODULES)
 
 
 @pytest.mark.parametrize("path", [ROOT / "chip_smoke.py",

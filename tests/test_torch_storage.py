@@ -2,11 +2,15 @@
 ``repro.storage``, bit for bit.
 
 From one seed, the port's ``RlncSimulator`` (on CPU tensors, the plain GF
-matmul) and the reference's scalar-engine simulator must hold equal node
-states after every repair round of every scheme, give the same Fig. 10
-curve, and, after a state handover, continue as the reference would.
+matmul) and the reference's simulator on the same engine must hold equal
+node states after every repair round of every scheme, give the same Fig. 10
+curve, and, after a state handover, continue as the reference would.  The
+port's batched engine (the planning tier, run on the CPU) is held against
+the reference's default batched engine: plans within 1e-9, node states bit
+for bit (the executor rounds quotas up, so 1e-9 cannot change a draw).
 """
 import random
+import warnings
 
 import numpy as np
 import pytest
@@ -40,14 +44,20 @@ def _assert_same_state(port_sim, ref_sim, msg=""):
     assert port_sim.rng.getstate() == ref_sim.rng.getstate()
 
 
-def _sims(setting, seed, block_bytes=16):
+def _sims(setting, seed, block_bytes=16, engine="scalar"):
     ref = ref_storage.RlncSimulator(ref_core.CodeParams(**setting),
                                     block_bytes=block_bytes, seed=seed,
-                                    engine="scalar")
+                                    engine=engine)
     port = port_storage.RlncSimulator(port_core.CodeParams(**setting),
                                       block_bytes=block_bytes, seed=seed,
-                                      device="cpu")
+                                      device="cpu", engine=engine)
     return port, ref
+
+
+def _close(a, b, msg):
+    np.testing.assert_allclose(np.asarray(a, dtype=float),
+                               np.asarray(b, dtype=float), rtol=1e-9,
+                               atol=1e-9, err_msg=msg)
 
 
 @pytest.mark.parametrize("setting", SETTINGS,
@@ -66,6 +76,21 @@ def test_repair_rounds_bitwise(scheme, setting):
     assert port.reconstruction_probability(samples=6) == \
         ref.reconstruction_probability(samples=6)
     assert port.rng.getstate() == ref.rng.getstate()
+
+
+@pytest.mark.parametrize("setting", SETTINGS,
+                         ids=["n8k2d4", "n8k3d5", "n8k2d4-alpha4"])
+@pytest.mark.parametrize("scheme", SCHEMES)
+def test_repair_rounds_bitwise_batched(scheme, setting):
+    port, ref = _sims(setting, seed=5, engine="batched")
+    for r in range(3):
+        pp = port.repair_round(scheme, port_storage.uniform())
+        rp = ref.repair_round(scheme, ref_storage.uniform())
+        assert pp.parent == rp.parent
+        _close(pp.betas, rp.betas, f"{scheme} round {r}")
+        _assert_same_state(port, ref, f"{scheme} round {r}")
+    assert port.reconstruction_probability(samples=6) == \
+        ref.reconstruction_probability(samples=6)
 
 
 def test_every_scheme_in_turn_on_one_store():
@@ -89,27 +114,53 @@ def test_fig10_curve_matches_reference(scheme):
         ref_storage.uniform(), engine="scalar", **kw)
     got = port_storage.reconstruction_vs_rounds(
         port_core.CodeParams.msr(n=8, k=2, d=4, M=6.0), scheme,
-        port_storage.uniform(), device="cpu", **kw)
+        port_storage.uniform(), engine="scalar", device="cpu", **kw)
     assert got == want
     sub = dict(kw, subset_samples=7)
     assert port_storage.reconstruction_vs_rounds(
         port_core.CodeParams.msr(n=8, k=2, d=4, M=6.0), scheme,
-        port_storage.uniform(), device="cpu", **sub) == \
+        port_storage.uniform(), engine="scalar", device="cpu", **sub) == \
         ref_storage.reconstruction_vs_rounds(
             ref_core.CodeParams.msr(n=8, k=2, d=4, M=6.0), scheme,
             ref_storage.uniform(), engine="scalar", **sub)
 
 
-def test_plan_rounds_then_execute():
-    port, ref = _sims(SETTINGS[0], seed=3)
+@pytest.mark.parametrize("scheme", ["ftr", "fr", "rctree"])
+@pytest.mark.parametrize("subset_samples", [0, 7])
+def test_fig10_curve_matches_reference_batched(scheme, subset_samples):
+    """The default engines of both (the bulk path at subset_samples=0 for
+    the schemes with a batched planner), bit for bit."""
+    kw = dict(rounds=4, trials=2, seed=10, subset_samples=subset_samples)
+    want = ref_storage.reconstruction_vs_rounds(
+        ref_core.CodeParams.msr(n=8, k=2, d=4, M=6.0), scheme,
+        ref_storage.uniform(), **kw)
+    got = port_storage.reconstruction_vs_rounds(
+        port_core.CodeParams.msr(n=8, k=2, d=4, M=6.0), scheme,
+        port_storage.uniform(), device="cpu", **kw)
+    assert got == want
+
+
+def _plan_rounds_then_execute(engine, same_betas):
+    port, ref = _sims(SETTINGS[0], seed=3, engine=engine)
     pr = port.plan_rounds("fr", port_storage.uniform(), 3)
     rr = ref.plan_rounds("fr", ref_storage.uniform(), 3)
     for (pf, pprov, ppl), (rf, rprov, rpl) in zip(pr, rr):
         assert (pf, pprov, ppl.parent) == (rf, rprov, rpl.parent)
-        assert ppl.betas == rpl.betas
+        same_betas(ppl.betas, rpl.betas)
         port.execute_plan(ppl, pf, pprov)
         ref.execute_plan(rpl, rf, rprov)
     _assert_same_state(port, ref, "plan_rounds")
+
+
+def test_plan_rounds_then_execute():
+    def equal(a, b):
+        assert a == b
+    _plan_rounds_then_execute("scalar", equal)
+
+
+def test_plan_rounds_then_execute_batched():
+    _plan_rounds_then_execute(
+        "batched", lambda a, b: _close(a, b, "plan_rounds"))
 
 
 @pytest.mark.parametrize("scheme", ["ftr", "tr"])
@@ -123,7 +174,7 @@ def test_state_handover_continues_like_reference(scheme):
     nodes = {i: (nd.vectors, nd.payload) for i, nd in ref.nodes.items()}
     port = port_storage.from_reference_state(
         params, ref.file_blocks, nodes, ref.np_rng.bit_generator.state,
-        ref.rng.getstate(), device="cpu")
+        ref.rng.getstate(), device="cpu", engine="scalar")
     _assert_same_state(port, ref, "handover")
     for r in range(3):
         port.repair_round(scheme, port_storage.uniform())
@@ -152,13 +203,40 @@ def test_compare_schemes_matches_reference_scalar():
     want = ref_storage.compare_schemes(rp, ref_storage.uniform(), schemes,
                                        trials=4, seed=5, engine="scalar")
     got = port_storage.compare_schemes(pp, port_storage.uniform(), schemes,
-                                       trials=4, seed=5)
+                                       trials=4, seed=5, engine="scalar")
     for s in schemes:
         w, g = want[s], got[s]
         assert (g.mean_time, g.mean_norm_time, g.mean_traffic,
                 g.mean_norm_traffic, g.engine) == \
             (w.mean_time, w.mean_norm_time, w.mean_traffic,
              w.mean_norm_traffic, w.engine)
+
+
+@pytest.mark.parametrize("interior", [False, True], ids=["msr", "interior"])
+def test_compare_schemes_matches_reference_batched(interior):
+    """Both default (batched) engines, every trial planned in one call:
+    the statistics within 1e-9 (``plan_seconds`` is wall time, left out);
+    rctree falls back to the scalar planner in both, with the warning."""
+    a_mbr = ref_core.mbr_point(600.0, 3, 6)[0]
+    alpha = 0.5 * (200.0 + a_mbr) if interior else 200.0
+    rp = ref_core.CodeParams(n=12, k=3, d=6, M=600.0, alpha=alpha)
+    pp = port_core.CodeParams(n=12, k=3, d=6, M=600.0, alpha=alpha)
+    schemes = ("star", "fr", "tr", "ftr", "shah", "rctree")
+    with warnings.catch_warnings():     # rctree's once-per-scheme warning
+        warnings.simplefilter("ignore", RuntimeWarning)
+        want = ref_storage.compare_schemes(rp, ref_storage.uniform(),
+                                           schemes, trials=12, seed=5)
+        got = port_storage.compare_schemes(pp, port_storage.uniform(),
+                                           schemes, trials=12, seed=5,
+                                           device="cpu")
+    for s in schemes:
+        w, g = want[s], got[s]
+        assert g.engine == w.engine == ("scalar" if s == "rctree"
+                                        else "batched")
+        _close([g.mean_time, g.mean_norm_time, g.mean_traffic,
+                g.mean_norm_traffic],
+               [w.mean_time, w.mean_norm_time, w.mean_traffic,
+                w.mean_norm_traffic], s)
 
 
 def test_capacity_samplers_draw_like_reference():
