@@ -45,7 +45,10 @@ nonzero:
    seed (every lane for star) held against the scalar planners on the
    host: parents equal, star times bitwise, the rest within 1e-9 relative;
    a lane whose tree differs passes only if both trees take the same time
-   within 1e-9 (a tie), and ties are counted.
+   within 1e-9 (a tie), and ties are counted.  Then the repair latency of
+   phase 2 in its steady state: 16 Fig. 7 overlays planned one at a time
+   (B = 1) on the card after a warm-up call, each held to and timed beside
+   the scalar planner on the host on the same overlay (run ``fig7-b1``).
 
 The lines before the last are the ``{"planning": [...]}`` and
 ``{"kernels": [...]}`` records; the last line is
@@ -61,6 +64,7 @@ import json
 import math
 import pathlib
 import random
+import statistics
 import subprocess
 import sys
 import time
@@ -91,6 +95,7 @@ PLAN_RUNS = [
 ]
 PLAN_M = 8000.0
 PLAN_CHECK = 256                 # lanes held against the scalar planners
+B1_OVERLAYS = 16                 # overlays planned one at a time (fig7-b1)
 REL_TOL = 1e-9
 
 
@@ -342,6 +347,43 @@ def planning_phase(seed: int) -> list:
                 f"{check['tie_lanes']} ties, max rel err "
                 f"{check['max_rel_err']:.2e}, scalar "
                 f"{check['scalar_ms_per_plan']:.3f} ms/plan")
+
+    # repair latency: one overlay a call, warm, beside the scalar planner
+    rng = np.random.default_rng([seed, len(PLAN_RUNS)])
+    caps = draw_caps(rng, B1_OVERLAYS, 10)
+    params = plan_params(core, 20, 5, 10, "msr")
+    nets = [core.OverlayNetwork(c.tolist()) for c in caps]
+    ones = [torch.from_numpy(c[None]).to(DEVICE) for c in caps]
+    for scheme in ("star", "fr", "tr", "ftr", "shah"):
+        timed(lambda: core.plan_many(ones[0], params, scheme))    # warm-up
+        card, reads, scalar, ties, err = [], [], [], 0, 0.0
+        for b in range(B1_OVERLAYS):
+            res, ms, syncs = timed(
+                lambda: core.plan_many(ones[b], params, scheme))
+            if not (res.engine == "batched" and res.times.is_cuda):
+                raise AssertionError(f"fig7-b1/{scheme}: not planned by the "
+                                     f"batched engine on the card")
+            check = check_lanes(core, scheme, res, nets[b:b + 1],
+                                lambda _: params, [0])
+            card.append(ms)
+            reads.append(syncs)
+            scalar.append(check["scalar_ms_per_plan"])
+            ties += check["tie_lanes"]
+            err = max(err, check["max_rel_err"])
+        row = dict(run="fig7-b1", scheme=scheme,
+                   source="benchmarks/fig7_bandwidth.py:14", B=1, d=10,
+                   alpha=params.alpha, overlays=B1_OVERLAYS,
+                   warm_ms=statistics.median(card), warm_ms_max=max(card),
+                   syncs=statistics.median(reads),
+                   scalar_ms_per_plan=statistics.median(scalar),
+                   lanes_checked=B1_OVERLAYS, tie_lanes=ties,
+                   max_rel_err=err)
+        rows.append(row)
+        log(f"  fig7-b1/{scheme}: {B1_OVERLAYS} overlays one at a time, "
+            f"median {row['warm_ms']:.3f} ms on the card (max "
+            f"{row['warm_ms_max']:.3f}, {row['syncs']} device reads), scalar "
+            f"{row['scalar_ms_per_plan']:.3f} ms on the host; {ties} ties, "
+            f"max rel err {err:.2e}")
     return rows
 
 

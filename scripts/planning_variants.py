@@ -5,18 +5,15 @@
 
 Plans the Fig. 7 deployment (MSR n=20, k=5, d=10, M=8000, links U[10,120],
 B = 4096 overlays) with ``repro_torch.core.torch_engine`` and times the
-schemes that bisect (ftr, shah, and fr at the Fig. 8 interior point) with
-the engine's private constants varied, in turns (forward, then backward):
-
-* ``_SPEC_LEVELS``: bisection levels evaluated per oracle call (1 is plain
-  bisection);
-* ``_WF_CHECK``: water-fill rounds between reads of its exit flag (10, the
-  round bound at d = 10, never reads).
-
-Every variant must give the default's parents and times within 1e-9.  Then
-one profiled plan of each scheme at the defaults (``torch.profiler``,
-CPU and CUDA activities): the device's busy time (the sum of the kernels'
-own device time), kernel launches, and the wall time around them.
+schemes that bisect (ftr, shah, and fr at the Fig. 8 interior point)
+with ``_SPEC_LEVELS``, the bisection levels evaluated per oracle call (1 is
+plain bisection), varied in turns (forward, then backward).  Every variant
+must give the default's parents and times within 1e-9.  Then one profiled
+plan of each scheme at the engine's own constants (``torch.profiler``, CPU
+and CUDA activities): the device's busy time (the sum of the kernels' own
+device time), kernel launches and device reads, the wall time around that
+profiled plan, and beside it the mean unprofiled time of the same scheme at
+the same constants from the turns above.
 
 Prints the card and one line per measurement; the last line is a JSON
 object.
@@ -35,8 +32,7 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 B, N, K, D, M = 4096, 20, 5, 10, 8000.0
-VARIANTS = [dict(_SPEC_LEVELS=L, _WF_CHECK=c)
-            for L in (1, 2, 3, 4) for c in (1, 2, 3, 10)]
+VARIANTS = [dict(_SPEC_LEVELS=L) for L in (1, 2, 3, 4)]
 
 
 def main(argv=None) -> int:
@@ -65,6 +61,9 @@ def main(argv=None) -> int:
                                alpha=M / K + 0.5 * (a_mbr - M / K))
     cells = [("ftr", msr), ("shah", msr), ("fr", interior)]
     default = {name: getattr(te, name) for name in VARIANTS[0]}
+    if default not in VARIANTS:
+        raise AssertionError(f"the engine's constants {default} are not "
+                             f"among the variants")
 
     def run(scheme, params):
         s0 = te.syncs
@@ -107,12 +106,18 @@ def main(argv=None) -> int:
             if dev_us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
                 busy_us += dev_us
                 launches += e.count
+        same = [r["ms"] for r in rows if r["scheme"] == scheme
+                and all(r[n] == v for n, v in default.items())]
         profiles.append(dict(scheme=scheme, wall_ms=ms, syncs=syncs,
                              device_busy_ms=busy_us / 1e3,
                              kernel_launches=launches,
-                             busy_share=busy_us / 1e3 / ms))
-        print(f"profiled {scheme}: wall {ms:.1f} ms, device busy "
-              f"{busy_us / 1e3:.1f} ms ({launches} kernels)", flush=True)
+                             busy_share=busy_us / 1e3 / ms,
+                             unprofiled_ms=sum(same) / len(same),
+                             **default))
+        print(f"profiled {scheme} {default}: wall {ms:.1f} ms, device busy "
+              f"{busy_us / 1e3:.1f} ms ({launches} kernels, {syncs} device "
+              f"reads); unprofiled {profiles[-1]['unprofiled_ms']:.1f} ms",
+              flush=True)
     out = {"card": card, "B": B, "variants": rows, "profiles": profiles,
            "defaults": default}
     if args.out is not None:

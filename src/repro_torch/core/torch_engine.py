@@ -18,8 +18,8 @@ launches and device-to-host reads, not arithmetic.  The design follows:
   bitwise that of plain bisection;
 * the water-fill needs at most d rounds (a lane freezes at least one
   coordinate a round, and a round after a lane has frozen them all changes
-  nothing in it); it reads ``active.any()`` every ``_WF_CHECK`` rounds to
-  stop early, since most calls end after a few rounds;
+  nothing in it); it reads ``active.any()`` after every round to stop
+  early, since most calls end after a few rounds;
 * loops whose length depends on the data (hi-doubling, the local search's
   probe waves) read one flag from the device per pass, and refinements run
   on the lanes that need them only;
@@ -51,7 +51,6 @@ __all__ = ["plan_fr_batch", "plan_ftr_batch", "plan_shah_batch",
 F64 = torch.float64
 INF = float("inf")
 _SPEC_LEVELS = 4        # bisection levels evaluated per oracle call
-_WF_CHECK = 1           # water-fill rounds between reads of the exit flag
 _DOUBLINGS = 4          # hi doublings between reads of the exit flag
 
 syncs = 0               # device-to-host reads made by the engine
@@ -154,8 +153,7 @@ def _waterfill(inc: torch.Tensor, bnd: torch.Tensor,
         mfrz = fin | ~setfreeze.any(dim=1, keepdim=True)
         v = torch.where(mfrz & (active > 0), torch.where(fin, lamx, alpha), v)
         active = active * ~mfrz
-        if (r + 1) % _WF_CHECK == 0 and r + 1 < d and \
-                not _read(active.any())[0]:
+        if r + 1 < d and not _read(active.any())[0]:
             break
     return v
 

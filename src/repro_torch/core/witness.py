@@ -147,25 +147,75 @@ def min_traffic_batch(t: np.ndarray, direct: np.ndarray,
 def tree_traffic_batch(t: np.ndarray, parents: np.ndarray, caps: np.ndarray,
                        region: FeasibleRegion, alpha: float,
                        lanes: Optional[np.ndarray] = None) -> np.ndarray:
-    """Traffic-minimal betas at the per-lane times ``t`` on the trees
-    ``parents`` (B, d+1) over capacity tensors ``caps`` (B, d+1, d+1): one
-    water-fill at ``t`` (the planning tier's, run on the host) and its
-    level cut.  Lanes outside ``lanes``, or with a non-finite ``t``, return
-    zeros."""
-    import torch
-
-    from . import torch_engine as te
-
+    """Batched ``lp._tree_lp``: traffic-minimal betas at per-lane times ``t``
+    on the trees ``parents`` (B, d+1) over capacity tensors ``caps``
+    (B, d+1, d+1): one water-fill at ``t`` and its level cut.  Lanes outside
+    ``lanes``, or with a non-finite ``t``, return zeros."""
     t = np.asarray(t, dtype=np.float64)
+    caps = np.asarray(caps, dtype=np.float64)
+    parents = np.asarray(parents, dtype=np.int64)
     live = np.isfinite(t) if lanes is None else (lanes & np.isfinite(t))
-    inc, ec, chain = te._tree_arrays(
-        torch.from_numpy(np.asarray(caps, dtype=np.float64)),
-        torch.from_numpy(np.asarray(parents, dtype=np.int64)))
-    _, wf = te._tree_feasible(torch.from_numpy(np.where(live, t, 1.0)), inc,
-                              ec, torch.tensor(region.x, dtype=torch.float64),
-                              alpha, chain)
-    betas = level_cut_batch(wf.numpy(), region, lanes=live)
+    B, D1 = parents.shape
+    inc = _subtree_masks(parents)[:, 1:, :]
+    edge_caps = caps[np.arange(B)[:, None], np.arange(1, D1)[None, :],
+                     parents[:, 1:]]
+    bounds = np.where(live, t, 1.0)[:, None] * edge_caps
+    wf = _waterfill(inc, np.where(bounds < alpha - 1e-12, bounds, np.inf),
+                    alpha)
+    betas = level_cut_batch(wf, region, lanes=live)
     return np.where(live[:, None], betas, 0.0)
+
+
+def _subtree_masks(parents: np.ndarray) -> np.ndarray:
+    """(B, d+1, d) float64, [b, u, x-1] = 1 iff provider x lies in u's
+    subtree: log2(d+1) squarings of the one-step reachability."""
+    P, D1 = parents.shape
+    C = np.zeros((P, D1, D1))
+    rows = np.arange(P)[:, None]
+    node = np.arange(D1)[None, :]
+    C[rows, node, node] = 1.0
+    C[rows, node[:, 1:], parents[:, 1:]] = 1.0
+    steps = 1
+    while steps < D1:
+        C = ((C @ C) > 0).astype(np.float64)
+        steps *= 2
+    return np.ascontiguousarray(C.transpose(0, 2, 1)[:, :, 1:])
+
+
+def _waterfill(inc: np.ndarray, bnd: np.ndarray, alpha: float) -> np.ndarray:
+    """Leximin-maximal vectors under the cap ``alpha`` and the laminar set
+    caps ``bnd`` (+inf: inactive) of the sets ``inc`` (P, S, d): each round
+    freezes every chain-minimal saturated set of every lane."""
+    P, S, d = inc.shape
+    chain = (inc @ inc.transpose(0, 2, 1)) > 0
+    athr = alpha - 1e-15
+    v = np.zeros((P, d))
+    active = np.ones((P, d))
+    X = np.empty((P, d, 2))
+    with np.errstate(divide="ignore", invalid="ignore"):
+        while True:
+            X[..., 0] = active
+            X[..., 1] = v * (1.0 - active)
+            Y = inc @ X
+            na = Y[..., 0]
+            cand = (bnd - Y[..., 1]) / np.maximum(na, 1.0)
+            np.copyto(cand, np.inf, where=na == 0)
+            freezable = cand < athr
+            if not freezable.any():
+                np.copyto(v, alpha, where=active > 0)
+                break
+            chmin = np.where(chain, cand[:, None, :], np.inf).min(axis=2)
+            setfreeze = freezable & (cand <= chmin)
+            lamx = np.where(setfreeze[:, :, None] & (inc > 0),
+                            cand[:, :, None], np.inf).min(axis=1)
+            np.maximum(lamx, 0.0, out=lamx)
+            fin = lamx < np.inf
+            mfrz = fin | ~setfreeze.any(axis=1)[:, None]
+            np.copyto(v, np.where(fin, lamx, alpha), where=mfrz & (active > 0))
+            active = active * ~mfrz
+            if not active.any():
+                break
+    return v
 
 
 def tree_min_traffic(wf: Sequence[float], region: FeasibleRegion,

@@ -155,14 +155,12 @@ def test_speculative_bisection_is_plain_bisection(monkeypatch):
                 assert torch.equal(getattr(got, f), getattr(want, f)), (s, f)
 
 
-@pytest.mark.parametrize("check_every", [1, 2, 100])
-def test_fixed_round_waterfill_matches_reference(monkeypatch, check_every):
-    """The water-fill without reads of the device (d rounds), and with an
-    exit read every round or every two, against the reference's
-    ``waterfill_batch`` on the subtree families of random trees."""
-    monkeypatch.setattr(te, "_WF_CHECK", check_every)
-    rng = np.random.default_rng(5)
-    d, P = 6, 64
+@pytest.mark.parametrize("seed,d,P", [(5, 6, 64), (7, 4, 16), (11, 10, 48)])
+def test_fixed_round_waterfill_matches_reference(seed, d, P):
+    """The water-fill (at most d rounds, an exit read after each) against
+    the reference's ``waterfill_batch`` on the subtree families of random
+    trees, and the subtree masks against the reference's."""
+    rng = np.random.default_rng(seed)
     parents = np.zeros((P, d + 1), dtype=np.int64)
     for u in range(1, d + 1):
         parents[:, u] = rng.integers(0, u, size=P)     # parents precede u
