@@ -50,8 +50,41 @@ nonzero:
    (B = 1) on the card after a warm-up call, each held to and timed beside
    the scalar planner on the host on the same overlay (run ``fig7-b1``).
 
-The lines before the last are the ``{"planning": [...]}`` and
-``{"kernels": [...]}`` records; the last line is
+5. The fleet (``repro_torch.fleet``) on the card, every simulator built with
+   the card as its device, so each repair epoch is planned there through
+   ``plan_many`` and the data plane's store is held there:
+
+   a. the 4 rows of ``benchmarks/golden/fleet_quick_seed0.json`` (the
+      reference's quick sweep, ``benchmarks/fleet_scale.py:164-220``;
+      msr n=12 k=3 d=6 M=600) re-simulated at the default engine: counts
+      equal, floats within 1e-9 relative (a plan-error key, a ratio less
+      one, relative to the ratio);
+   b. region scale with the coded data plane: ``hot_reads`` at n = 96
+      under fleet_scale's storm (shocks every duration/8 down to 0.35),
+      about 150 failures, decode checks on, 4 MiB a block, so the store
+      holds 96 nodes x 2 blocks x 4 MiB = 768 MiB on the card.  Every
+      repair's decode check must pass, reads must complete, the kernel's
+      launch counter (zeroed before the run) must have risen and equal
+      the store's products; the same run with the store's products on the
+      plain version on the card (the planning calls answered from the
+      first run's record, each checked to see the same overlays) must
+      leave bitwise equal stores and an equal summary; and the run traced
+      (planned again) must give an equal summary.  The kernel is then held
+      to the plain version at each product shape of the run and timed
+      beside its bound;
+   c. the ``ensemble_n96_K4_star`` row (``benchmarks/fleet_scale.py:143-
+      149``: 4 clusters of 96 nodes in lockstep, 600 s, slow U[0.3, 8]
+      links) planned on the card, held to the same ensemble planned by the
+      scalar engine, and at ``--seed 0`` to the reference's numbers in
+      ``BENCH_fleet.json``: pooled summary and bootstrap intervals.
+
+   Each run records its wall time, events per second, the time spent in
+   policy calls (ending in a synchronize) and its share of the wall, the
+   planning batch sizes per epoch, and peak device memory.
+
+The lines before the last are the ``{"planning": [...]}``, ``{"fleet":
+[...]}`` and ``{"kernels": [...]}`` records (the kernel's entry carries its
+fleet-path launches, times and shapes under ``"fleet"``); the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits nonzero and prints
 no result.
 """
@@ -60,6 +93,7 @@ from __future__ import annotations
 import argparse
 import collections
 import dataclasses
+import gc
 import json
 import math
 import pathlib
@@ -68,6 +102,7 @@ import statistics
 import subprocess
 import sys
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -97,6 +132,18 @@ PLAN_M = 8000.0
 PLAN_CHECK = 256                 # lanes held against the scalar planners
 B1_OVERLAYS = 16                 # overlays planned one at a time (fig7-b1)
 REL_TOL = 1e-9
+# phase 5: the fleet.  fleet_scale's code (benchmarks/fleet_scale.py:160-161)
+FLEET_PARAMS = dict(n=12, k=3, d=6, M=600.0)
+FLEET_GOLDEN = "benchmarks/golden/fleet_quick_seed0.json"
+FLEET_BENCH = "BENCH_fleet.json"          # the reference's full sweep, seed 0
+FLEET_EVENTS = 150                        # fleet_scale.py:93, EVENT_BUDGET
+REGION_N, REGION_LAM = 96, 2e-3
+REGION_PAYLOAD = BLOCK_BYTES              # the main path's block size
+FLEET_EPOCHS = 16                         # storm epochs re-planned, timed
+ENSEMBLE_ROW = "ensemble_n96_K4_star"     # fleet_scale.py:143-149
+ENSEMBLE_CI_KEYS = ("mean_backlog", "regen_p50", "regen_p99",
+                    "vulnerability_p99", "unavail_fraction",
+                    "mttdl_estimate")
 
 
 def log(*parts) -> None:
@@ -387,6 +434,427 @@ def planning_phase(seed: int) -> list:
     return rows
 
 
+# -- phase 5: the fleet ---------------------------------------------------
+
+def fleet_config_seed(root_seed: int, name: str) -> int:
+    """fleet_scale's per-configuration seed (benchmarks/fleet_scale.py:96)."""
+    return (root_seed * 1_000_003 + zlib.crc32(name.encode())) % (1 << 31)
+
+
+def fleet_quick_rows(fleet) -> dict:
+    """The golden's rows of fleet_scale's quick sweep
+    (benchmarks/fleet_scale.py:164-220): steady churn at n = 16 under star,
+    ftr and flexible, and the abort-heavy flaky_providers row, each sized
+    as 40 failures in expectation."""
+    rows = {}
+    n, lam = 16, 2e-3
+    for pol in ("star", "ftr", "flexible"):
+        rows[f"n{n}_lam{lam:g}_{pol}"] = (fleet.SCENARIOS["steady"](
+            n, failure_rate=lam, duration=40 / (lam * n)), pol)
+    lam = 4e-3
+    rows[f"flaky_providers_n{n}_flexible"] = (
+        fleet.SCENARIOS["flaky_providers"](n, failure_rate=lam,
+                                           duration=40 / (lam * n)),
+        "flexible")
+    return rows
+
+
+def summary_close(got: dict, want: dict, label: str) -> float:
+    """Hold a fleet summary to a reference one: every key, counts equal,
+    floats within 1e-9 relative (a plan-error key is a realized/predicted
+    ratio less one, so relative to the ratio; ROADMAP C6).  Returns the
+    largest relative difference seen."""
+    if set(got) != set(want):
+        raise AssertionError(f"{label}: keys {sorted(set(got) ^ set(want))}")
+    worst = 0.0
+    for key, w in want.items():
+        g = got[key]
+        if w is None or isinstance(w, int) or g is None:
+            if g != w or type(g) is not type(w):
+                raise AssertionError(f"{label}.{key}: {g!r} != {w!r}")
+            continue
+        if math.isinf(w) or math.isinf(g):
+            if g != w:
+                raise AssertionError(f"{label}.{key}: {g!r} != {w!r}")
+            continue
+        scale = abs(1.0 + w) if key.startswith("plan_err") else abs(w)
+        err = abs(g - w) / scale if scale else abs(g - w)
+        worst = max(worst, err)
+        if abs(g - w) > REL_TOL * scale:
+            raise AssertionError(f"{label}.{key}: {g!r} vs {w!r}")
+    return worst
+
+
+class TimedPolicy:
+    """A repair policy passed through unchanged, with every call timed on
+    the host clock to the end of the device's work, and its batch size (R
+    overlays, one planning epoch) counted."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.name = inner.name
+        self.seconds = 0.0
+        self.batches = collections.Counter()
+
+    def _timed(self, fn, caps, params, device):
+        t0 = time.perf_counter()
+        out = fn(caps, params, device=device)
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        self.seconds += time.perf_counter() - t0
+        self.batches[int(caps.shape[0])] += 1
+        return out
+
+    def plan_batch(self, caps, params, device=None):
+        return self._timed(self.inner.plan_batch, caps, params, device)
+
+    def replan(self, caps, params, device=None):
+        return self._timed(self.inner.replan, caps, params, device)
+
+    def replan_candidates(self, caps, params, device=None):
+        return self._timed(self.inner.replan_candidates, caps, params, device)
+
+
+class RecordedPolicy:
+    """A policy that records every call's overlays and plans (``record``),
+    or answers from such a record (``replay``), raising unless the overlays
+    it is given equal the recorded ones bit for bit."""
+
+    def __init__(self, inner, calls=None):
+        self.inner = inner
+        self.name = inner.name
+        self.replay = calls is not None
+        self.calls = list(calls) if calls is not None else []
+        self.at = 0
+
+    def _call(self, kind, caps, params, device):
+        if not self.replay:
+            out = getattr(self.inner, kind)(caps, params, device=device)
+            self.calls.append((kind, caps.copy(), params.d, out))
+            return out
+        want_kind, want_caps, want_d, out = self.calls[self.at]
+        self.at += 1
+        if (kind, params.d) != (want_kind, want_d) or \
+                not np.array_equal(caps, want_caps):
+            raise AssertionError(f"replayed planning call {self.at - 1} "
+                                 f"got other overlays")
+        return out
+
+    def plan_batch(self, caps, params, device=None):
+        return self._call("plan_batch", caps, params, device)
+
+    def replan(self, caps, params, device=None):
+        return self._call("replan", caps, params, device)
+
+    def replan_candidates(self, caps, params, device=None):
+        return self._call("replan_candidates", caps, params, device)
+
+
+def fresh_peak() -> int:
+    """Free what earlier runs left for the collector, reset the peak, and
+    return the bytes still allocated: the baseline a run's peak is read
+    against."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def fleet_run(label: str, make_sim, policy: TimedPolicy, source: str,
+              reduced: str) -> tuple:
+    """Build and run one simulator; return (sim, summary, record).  The
+    record's ``peak_mem_gib`` is the run's peak device allocation above
+    what was allocated when it started (``base_mem_gib``)."""
+    base = fresh_peak()
+    t0 = time.perf_counter()
+    sim = make_sim()
+    summary = sim.run().summary()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rec = dict(run=label, source=source, reduced=reduced, wall_s=wall,
+               events=sim.loop_events, events_per_s=sim.loop_events / wall,
+               policy_s=policy.seconds, policy_share=policy.seconds / wall,
+               planning_calls=sum(policy.batches.values()),
+               batch_sizes={str(b): c for b, c in
+                            sorted(policy.batches.items())},
+               peak_mem_gib=(torch.cuda.max_memory_allocated() - base) / 2**30,
+               base_mem_gib=base / 2**30,
+               completed=summary["completed"], aborted=summary["aborted"])
+    return sim, summary, rec
+
+
+def fleet_phase(seed: int, root: pathlib.Path) -> tuple:
+    """Phase 5 (see the module docstring).  Returns (records, the kernel's
+    fleet-path entry for the ``kernels`` record)."""
+    from unittest import mock
+
+    import repro_torch.fleet as fleet
+    from repro_torch.core import CodeParams
+    from repro_torch.fleet import dataplane as dpmod
+    from repro_torch.kernels import gf_matmul, gf_matmul_cuda, gf_matmul_ref
+    from repro_torch.obs import json_sanitize
+    from repro_torch.storage import uniform_matrix
+
+    params = CodeParams.msr(**FLEET_PARAMS)
+    dev = torch.device(DEVICE, torch.cuda.current_device())
+    records = []
+
+    # -- a. the golden's quick rows, planned on the card --------------------
+    golden = json.loads((root / FLEET_GOLDEN).read_text())
+    rows = fleet_quick_rows(fleet)
+    for name in sorted(golden["configs"]):
+        sc, pol = rows[name]
+        policy = TimedPolicy(fleet.make_policy(pol))
+        _, summary, rec = fleet_run(
+            name, lambda: fleet.FleetSimulator(
+                sc, policy, params,
+                seed=fleet_config_seed(golden["root_seed"], name),
+                device=dev), policy,
+            "benchmarks/fleet_scale.py:164-220 (quick sweep)", "none")
+        rec["max_rel_err"] = summary_close(json_sanitize(summary),
+                                           golden["configs"][name], name)
+        records.append(rec)
+        log(f"  golden {name}: equal within the contract (max rel err "
+            f"{rec['max_rel_err']:.2e}); {rec['wall_s']:.2f} s, "
+            f"{rec['events']} events, policy {rec['policy_s']:.2f} s "
+            f"({rec['policy_share']:.0%}), B {rec['batch_sizes']}")
+
+    # -- b. region scale with the coded data plane --------------------------
+    if dpmod.DataPlane._resolve_matmul("auto") is not gf_matmul or \
+            dpmod.DataPlane._resolve_matmul("kernel") is not gf_matmul:
+        raise AssertionError("the data plane's store does not resolve to "
+                             "kernels.ops.gf_matmul")
+    name = f"dataplane_hot_reads_storm_n{REGION_N}_flexible"
+    duration = FLEET_EVENTS / (REGION_LAM * REGION_N)
+    storm = dataclasses.replace(
+        fleet.hot_reads(REGION_N, failure_rate=REGION_LAM, duration=duration,
+                        dataplane=True, dataplane_verify=True),
+        shock_period=duration / 8, shock_lo=0.35,
+        dataplane_payload_bytes=REGION_PAYLOAD)
+    region_seed = fleet_config_seed(seed, name)
+    source = ("benchmarks/fleet_scale.py:223-243 (the storm row) at "
+              "fleet_scale's full event budget (:93) and n = 96")
+    reduced = "none: n = 96 of a region's clusters; payload 4 MiB a block"
+
+    def store_matmul(fn):
+        return mock.patch.object(dpmod.DataPlane, "_resolve_matmul",
+                                 staticmethod(lambda mode: fn))
+
+    shape_log = ShapeLog(gf_matmul)
+    recorded = RecordedPolicy(fleet.make_policy("flexible"))
+    policy = TimedPolicy(recorded)
+    gf_matmul_cuda.launches = 0
+    with store_matmul(shape_log):
+        sim, summary, rec = fleet_run(
+            name, lambda: fleet.FleetSimulator(storm, policy, params,
+                                               seed=region_seed, device=dev),
+            policy, source, reduced)
+    launches = gf_matmul_cuda.launches
+    torch.cuda.synchronize()
+    fleet_ms = shape_log.ms_by_shape()
+    store = sim.dataplane.store
+    store_mib = sum(nd.payload.numel() for nd in store.nodes.values()) / MIB
+    if not (summary["decode_failures"] == 0 and summary["reads_completed"] > 0
+            and summary["repair_bytes"] > 0 and summary["decode_checks"]
+            == summary["completed"] > 0):
+        raise AssertionError(f"{name}: {summary}")
+    if launches <= 0 or launches != sum(shape_log.shapes.values()):
+        raise AssertionError(f"{name}: {launches} kernel launches for "
+                             f"{sum(shape_log.shapes.values())} products")
+    if not (store.file_blocks.device.type == torch.device(DEVICE).type
+            and store_mib == REGION_N * 2 * REGION_PAYLOAD / MIB):
+        raise AssertionError(f"{name}: store of {store_mib} MiB on "
+                             f"{store.file_blocks.device}")
+    rec.update(kernel_launches=launches,
+               kernel_ms=sum(fleet_ms.values()), store_mib=store_mib,
+               decode_checks=summary["decode_checks"],
+               decode_failures=summary["decode_failures"],
+               reads_completed=summary["reads_completed"],
+               repair_bytes=summary["repair_bytes"],
+               read_bytes=summary["read_bytes"])
+    log(f"  {name}: {summary['completed']} repairs, {summary['decode_checks']}"
+        f" decode checks, 0 failures, {summary['reads_completed']} reads; "
+        f"store {store_mib:.0f} MiB on the card; {launches} kernel launches "
+        f"taking {rec['kernel_ms']:.3f} ms between their events; "
+        f"{rec['wall_s']:.2f} s, policy {rec['policy_s']:.2f} s "
+        f"({rec['policy_share']:.0%}), B {rec['batch_sizes']}, peak "
+        f"{rec['peak_mem_gib']:.2f} GiB")
+    kernel_nodes = {i: (nd.vectors, nd.payload)
+                    for i, nd in store.nodes.items()}
+    kernel_file = store.file_blocks
+    del sim, store
+
+    # the same run with the store's products on the plain version on the
+    # card; the policy answers from the kernel run's record, checking
+    # that every planning call sees the same overlays
+    replay = TimedPolicy(RecordedPolicy(recorded.inner, recorded.calls))
+    with store_matmul(gf_matmul_ref):
+        plain_sim, plain_summary, _ = fleet_run(
+            name + "/plain", lambda: fleet.FleetSimulator(
+                storm, replay, params, seed=region_seed, device=dev),
+            replay, source, reduced)
+    if gf_matmul_cuda.launches != launches:
+        raise AssertionError("the plain run reached the kernel")
+    plain_store = plain_sim.dataplane.store
+    if plain_summary != summary or replay.inner.at != len(recorded.calls) \
+            or not torch.equal(plain_store.file_blocks, kernel_file) \
+            or sorted(plain_store.nodes) != sorted(kernel_nodes) \
+            or not all(torch.equal(nd.vectors, kernel_nodes[i][0])
+                       and torch.equal(nd.payload, kernel_nodes[i][1])
+                       for i, nd in plain_store.nodes.items()):
+        raise AssertionError(f"{name}: kernel and plain stores differ")
+    del plain_sim, plain_store
+    torch.cuda.empty_cache()
+
+    # traced: planned for real again, the recorder on
+    traced_policy = TimedPolicy(fleet.make_policy("flexible"))
+    traced_sim, traced, traced_rec = fleet_run(
+        name + "/traced", lambda: fleet.FleetSimulator(
+            dataclasses.replace(storm, trace=True), traced_policy, params,
+            seed=region_seed, device=dev), traced_policy, source, reduced)
+    if traced != summary:
+        raise AssertionError(f"{name}: the traced summary differs")
+    rec.update(plain_store_equal=True, traced_equal=True,
+               trace_events=len(traced_sim.recorder),
+               traced_wall_s=traced_rec["wall_s"],
+               traced_policy_s=traced_rec["policy_s"])
+    log(f"  {name}: plain-store run bitwise equal (stores and summary), "
+        f"traced run equal ({rec['trace_events']} events recorded, "
+        f"{traced_rec['wall_s']:.2f} s)")
+    del traced_sim, kernel_nodes, kernel_file
+    torch.cuda.empty_cache()
+
+    # the kernel at the fleet's product shapes, against the plain version
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed + 5)
+    shapes = []
+    for (m, kk, n), calls in sorted(shape_log.shapes.items()):
+        a, b = rand_u8((m, kk), gen), rand_u8((kk, n), gen)
+        got, want = gf_matmul_cuda(a, b), gf_matmul_ref(a, b)
+        if not torch.equal(got, want):
+            raise AssertionError(f"kernel != plain at fleet shape "
+                                 f"{(m, kk, n)}")
+        big = n >= MIB
+        t_bytes, t_ops = bound_terms(m, kk, n)
+        shapes.append(dict(
+            shape=[m, kk, n], calls=calls, fleet_ms=fleet_ms[(m, kk, n)],
+            ms=cuda_ms(lambda: gf_matmul_cuda(a, b), 10 if big else 50),
+            plain_ms=cuda_ms(lambda: gf_matmul_ref(a, b), 2 if big else 10),
+            bound_ms=max(t_bytes, t_ops), bytes_ms=t_bytes, ops_ms=t_ops,
+            bound_by="operations" if t_ops >= t_bytes else "bytes"))
+    gf_matmul_cuda.launches = launches      # the checks above do not count
+    del a, b, got, want
+    total = {key: sum(r["calls"] * r[key] for r in shapes)
+             for key in ("ms", "plain_ms", "bound_ms")}
+    for r in sorted(shapes, key=lambda r: -r["fleet_ms"])[:8]:
+        log(f"    fleet {r['shape'][0]}x{r['shape'][1]}x{r['shape'][2]}: "
+            f"{r['calls']} calls, {r['fleet_ms']:.3f} ms in the run, warm "
+            f"{r['ms']:.4f} ms a call (plain {r['plain_ms']:.4f}, bound "
+            f"{r['bound_ms']:.4f}, {r['bound_by']})")
+    fleet_kernel = dict(
+        run=name, launches=launches, ms=sum(fleet_ms.values()),
+        ms_from_shapes=total["ms"], plain_ms=total["plain_ms"],
+        bound_ms=total["bound_ms"],
+        bound_by=("operations" if sum(r["calls"] * r["ops_ms"] for r in shapes)
+                  >= sum(r["calls"] * r["bytes_ms"] for r in shapes)
+                  else "bytes"),
+        library_ms=None, max_abs_err=0, shapes=shapes)
+
+    # the planning epochs of the storm run: the card against the scalar
+    # planners on the host, on the first FLEET_EPOCHS recorded overlays
+    card_ms, host_ms = [], []
+    host_policy = fleet.make_policy("flexible", engine="scalar")
+    for kind, caps, d, _ in recorded.calls[:FLEET_EPOCHS]:
+        pe = params if d == params.d else dataclasses.replace(params, d=d)
+        t0 = time.perf_counter()
+        on_card = recorded.inner.plan_batch(caps, pe, device=dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        on_host = host_policy.plan_batch(caps, pe, device=dev)
+        t2 = time.perf_counter()
+        card_ms.append((t1 - t0) * 1e3)
+        host_ms.append((t2 - t1) * 1e3)
+        for pc, ph in zip(on_card, on_host):
+            if not rel_ok(pc.time, ph.time):
+                raise AssertionError(f"{name}: epoch plan {pc.time} on the "
+                                     f"card, {ph.time} on the host")
+    rec.update(epochs_timed=len(card_ms),
+               epoch_card_ms=statistics.median(card_ms),
+               epoch_host_ms=statistics.median(host_ms))
+    log(f"  {name}: {len(card_ms)} planning epochs again, median "
+        f"{rec['epoch_card_ms']:.3f} ms on the card, "
+        f"{rec['epoch_host_ms']:.3f} ms by the scalar planners on the host")
+    records.append(rec)
+
+    # -- c. the ensemble: K = 4 clusters in lockstep, planned on the card ---
+    sc = fleet.Scenario(num_nodes=96, duration=600.0, failure_rate=4e-3,
+                        capacity_model=uniform_matrix(0.3, 8.0),
+                        max_concurrent=32)
+    ens_seed = fleet_config_seed(seed, ENSEMBLE_ROW)
+    pooled = {}
+    for engine in ("auto", "scalar"):
+        policies = []
+
+        def factory(engine=engine, policies=policies):
+            policies.append(TimedPolicy(fleet.make_policy("star",
+                                                          engine=engine)))
+            return policies[-1]
+
+        base = fresh_peak()
+        t0 = time.perf_counter()
+        ens = fleet.ClusterEnsemble(sc, factory, params, clusters=4,
+                                    root_seed=ens_seed, device=dev)
+        ens.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        pooled[engine] = (json_sanitize(ens.pooled().summary()),
+                          json_sanitize(ens.cis(ENSEMBLE_CI_KEYS, n_boot=200,
+                                                seed=ens_seed)))
+        if engine == "auto":
+            policy_s = sum(p.seconds for p in policies)
+            batches = collections.Counter()
+            for p in policies:
+                batches.update(p.batches)
+            events = sum(s.loop_events for s in ens.sims)
+            ens_rec = dict(
+                run=ENSEMBLE_ROW, source="benchmarks/fleet_scale.py:143-149",
+                reduced="none", wall_s=wall, events=events,
+                events_per_s=events / wall, policy_s=policy_s,
+                policy_share=policy_s / wall,
+                planning_calls=sum(batches.values()),
+                batch_sizes={str(b): c for b, c in sorted(batches.items())},
+                peak_mem_gib=(torch.cuda.max_memory_allocated() - base)
+                / 2**30, base_mem_gib=base / 2**30,
+                completed=pooled[engine][0]["completed"],
+                aborted=pooled[engine][0]["aborted"])
+    ens_rec["max_rel_err_vs_scalar"] = summary_close(
+        pooled["auto"][0], pooled["scalar"][0], ENSEMBLE_ROW)
+    for key, (lo, mid, hi) in pooled["auto"][1].items():
+        summary_close({"lo": lo, "mid": mid, "hi": hi},
+                      dict(zip(("lo", "mid", "hi"),
+                               pooled["scalar"][1][key])), f"cis.{key}")
+    bench = json.loads((root / FLEET_BENCH).read_text())
+    if seed == bench["root_seed"]:
+        want = dict(bench["configs"][ENSEMBLE_ROW])
+        want_cis = want.pop("cis")
+        want.pop("clusters")
+        ens_rec["max_rel_err_vs_reference"] = summary_close(
+            pooled["auto"][0], want, ENSEMBLE_ROW + " vs " + FLEET_BENCH)
+        for key, (lo, mid, hi) in pooled["auto"][1].items():
+            summary_close({"lo": lo, "mid": mid, "hi": hi},
+                          dict(zip(("lo", "mid", "hi"), want_cis[key])),
+                          f"{FLEET_BENCH} cis.{key}")
+    records.append(ens_rec)
+    log(f"  {ENSEMBLE_ROW}: pooled summary and bootstrap intervals equal the "
+        f"scalar engine's within the contract"
+        + (f" and {FLEET_BENCH}'s" if seed == bench["root_seed"] else "")
+        + f"; {ens_rec['completed']} repairs, {ens_rec['aborted']} aborts, "
+        f"{ens_rec['wall_s']:.2f} s, policy {ens_rec['policy_s']:.2f} s "
+        f"({ens_rec['policy_share']:.0%}), B {ens_rec['batch_sizes']}")
+    return records, fleet_kernel
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -661,10 +1129,18 @@ def main(argv=None) -> int:
     results["planning"] = planning_phase(args.seed)
     results["planning_s"] = time.perf_counter() - t0
     log(f"bulk planning: {results['planning_s']:.1f} s")
+
+    # -- 5. the fleet --------------------------------------------------------
+    log("fleet (repro_torch.fleet on the card):")
+    t0 = time.perf_counter()
+    results["fleet"], kernels[0]["fleet"] = fleet_phase(args.seed, root)
+    results["fleet_s"] = time.perf_counter() - t0
+    log(f"fleet: {results['fleet_s']:.1f} s")
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(results, indent=1))
     log(json.dumps({"planning": results["planning"]}))
+    log(json.dumps({"fleet": results["fleet"]}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,7 +24,8 @@ from .rctree import plan_rctree
 from .infoflow import InfoFlowGraph, RepairEvent, event_from_plan
 from .extensions import (plan_multi_failures, store_and_forward_time,
                          streaming_time_with_latency)
-from .batched import BatchPlanResult, caps_tensor, plans_from_batch
+from .batched import (BatchPlanResult, caps_tensor, plans_from_batch,
+                      plans_from_batches)
 from .torch_engine import (plan_fr_batch, plan_ftr_batch, plan_shah_batch,
                            plan_star_batch, plan_tr_batch)
 from .api import (SchemeSpec, get_scheme, plan, plan_many, register_scheme,
@@ -43,7 +44,8 @@ __all__ = [
     "plan_multi_failures", "plan_ort_flexible", "plan_ort_uniform",
     "plan_rctree", "plan_shah", "plan_shah_batch", "plan_star",
     "plan_star_batch", "plan_time", "plan_tr", "plan_tr_batch",
-    "plans_from_batch", "register_scheme", "scheme_names",
+    "plans_from_batch", "plans_from_batches", "register_scheme",
+    "scheme_names",
     "shah_region_thresholds", "sigma", "store_and_forward_time",
     "streaming_time_with_latency", "theorem6_example", "tree_flows",
     "tree_time_uniform", "tree_traffic_batch", "uniform_beta",

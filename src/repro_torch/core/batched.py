@@ -17,7 +17,8 @@ import torch
 from ..device import DeviceLike, resolve_device
 from .params import CodeParams, OverlayNetwork, RepairPlan, tree_flows
 
-__all__ = ["BatchPlanResult", "caps_tensor", "plans_from_batch"]
+__all__ = ["BatchPlanResult", "caps_tensor", "plans_from_batch",
+           "plans_from_batches"]
 
 
 @dataclasses.dataclass
@@ -70,19 +71,42 @@ def plans_from_batch(res: BatchPlanResult,
     their inf time.  The batch crosses to the host in one copy.  A batch
     that carries its scalar plans (``res.plans``) returns them verbatim.
     """
-    if res.plans is not None:
-        return list(res.plans)
-    d = res.betas.shape[1]
-    cols = [res.times[:, None], res.betas, res.parents.to(torch.float64)]
-    if res.lower_bounds is not None:
-        cols.append(res.lower_bounds[:, None])
-    rows = torch.cat(cols, dim=1).cpu().tolist()
-    plans = []
-    for row in rows:
-        betas = row[1:1 + d]
-        parent = {u: int(row[1 + d + u]) for u in range(1, d + 1)}
-        lb = row[2 + 2 * d] if res.lower_bounds is not None else None
-        plans.append(RepairPlan(res.scheme, params, parent, betas,
-                                tree_flows(parent, betas, params.alpha),
-                                row[0], lower_bound=lb))
+    [plans] = plans_from_batches([res], params)
     return plans
+
+
+def plans_from_batches(results: Sequence[BatchPlanResult],
+                       params: CodeParams) -> List[List[RepairPlan]]:
+    """:func:`plans_from_batch` of several batches planned for one
+    ``params``, with all of their device tensors crossing to the host in
+    one copy (a policy that races schemes reads its slate once)."""
+    blocks = []
+    for res in results:
+        if res.plans is not None:
+            continue
+        lbs = (res.lower_bounds if res.lower_bounds is not None
+               else torch.full_like(res.times, float("nan")))
+        blocks.append(torch.cat([res.times[:, None], res.betas,
+                                 res.parents.to(torch.float64),
+                                 lbs[:, None]], dim=1))
+    rows = (torch.cat([b.to(blocks[0].device) for b in blocks]).cpu().tolist()
+            if blocks else [])
+    out: List[List[RepairPlan]] = []
+    at = 0
+    for res in results:
+        if res.plans is not None:
+            out.append(list(res.plans))
+            continue
+        d = res.betas.shape[1]
+        B = res.times.shape[0]
+        plans = []
+        for row in rows[at:at + B]:
+            betas = row[1:1 + d]
+            parent = {u: int(row[1 + d + u]) for u in range(1, d + 1)}
+            lb = row[2 + 2 * d] if res.lower_bounds is not None else None
+            plans.append(RepairPlan(res.scheme, params, parent, betas,
+                                    tree_flows(parent, betas, params.alpha),
+                                    row[0], lower_bound=lb))
+        at += B
+        out.append(plans)
+    return out
