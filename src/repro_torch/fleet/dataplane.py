@@ -62,7 +62,7 @@ import torch
 
 from ..coding import GF8
 from ..core import CodeParams
-from ..device import DeviceLike
+from ..device import DeviceLike, resolve_device
 from ..kernels.ops import gf_matmul
 from ..storage.simulator import RlncSimulator
 from .sharing import Link, plan_links
@@ -79,10 +79,8 @@ _STORE_SALT = 0xDA7A
 
 
 def _host_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``GF8.matmul`` (log/antilog tables, host NumPy) on tensors of any
-    device; the product goes back to the operands' device."""
-    c = GF8.matmul(a.cpu().numpy(), b.cpu().numpy())
-    return torch.from_numpy(c).to(a.device)
+    """``GF8.matmul`` (log/antilog tables, host NumPy) on CPU tensors."""
+    return torch.from_numpy(GF8.matmul(a.numpy(), b.numpy()))
 
 
 # ---------------------------------------------------------------------------
@@ -231,10 +229,11 @@ class DataPlane:
         self.mini = CodeParams.msr(n=scenario.num_nodes, k=params.k,
                                    d=params.d, M=float(m_c))
         self.scale = self.mini.alpha / params.alpha
+        device = resolve_device(device)
         self.store = RlncSimulator(
             self.mini, block_bytes=scenario.dataplane_payload_bytes,
             seed=(seed * 1_000_003 + _STORE_SALT) % (1 << 31),
-            matmul=self._resolve_matmul(scenario.dataplane_matmul),
+            matmul=self._resolve_matmul(scenario.dataplane_matmul, device),
             device=device)
 
         self.reads: List[ReadFlow] = []
@@ -243,16 +242,24 @@ class DataPlane:
         self.read_link_bytes: Dict[Link, float] = {}
 
     @staticmethod
-    def _resolve_matmul(mode: str):
-        """GF matmul backend for the coded store.
+    def _resolve_matmul(mode: str, device: torch.device):
+        """GF matmul backend for the coded store on ``device``.
 
         ``"kernel"`` and ``"auto"`` are ``repro_torch.kernels.ops.gf_matmul``
         on the store's device: the Hopper kernel on the card, the plain
         PyTorch version on CPU tensors, never one for the other.
-        ``"numpy"`` is the field's log/antilog tables on the host
-        (:func:`_host_matmul`), taken only when the caller names it.
+        ``"numpy"`` is the field's log/antilog tables (:func:`_host_matmul`)
+        on a CPU store, taken only when the caller names it; a store on the
+        card refuses it rather than copy its blocks to the host.
         """
-        return _host_matmul if mode == "numpy" else gf_matmul
+        if mode != "numpy":
+            return gf_matmul
+        if device.type != "cpu":
+            raise ValueError(
+                f"dataplane_matmul='numpy' runs on a CPU store only; the "
+                f"store on {device} multiplies with the kernel "
+                f"('kernel' or 'auto')")
+        return _host_matmul
 
     # -- degraded reads as fragment transfers -------------------------------
 
