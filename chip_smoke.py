@@ -82,11 +82,44 @@ nonzero:
    policy calls (ending in a synchronize) and its share of the wall, the
    planning batch sizes per epoch, and peak device memory.
 
+6. Checkpoint regeneration and the LM stack at full width, on the card
+   (``repro_torch.ft``, ``repro_torch.models``), as the reference's
+   walkthrough does it (``examples/regenerate_checkpoint.py:20-28``) but at
+   yi-6b's published width:
+
+   a. yi-6b (bf16, 6,061,035,520 parameters, 12.1 GB) drawn on the card
+      from ``--seed``; the state ``{"params", "step"}`` saved as an
+      ``ErasureCoder(n=8, k=4, d=6, blocks_per_host=16)`` checkpoint over
+      hosts 0-3 and 8-11 of a 2-pod fleet (M = 64 blocks of 189,407,361
+      bytes, 128 coded blocks: 24.2 GB on the card).  Host 9 then fails
+      five times, regenerated each time with star, fr, tr, ftr and auto in
+      turn; after each, the state is restored from a set of k hosts with
+      host 9 and from one without, and every leaf must equal the original
+      byte for byte.  Every coded product goes through the kernel (its
+      launch counter, zeroed first, must rise); afterwards the kernel is
+      held to the plain version at every product shape of the phase on
+      fresh operands at the full width, on column windows (the first and
+      the last 4 MiB, which holds the ragged tail), and timed beside its
+      bound.
+   b. yi-6b prefill (B = 1, S = 2048) and 16 teacher-forced decode steps:
+      the logits are finite, and each equals the parallel forward's logits
+      at its position within 5 % of the largest logit (bf16 over 32
+      layers); layer 0's chunked attention equals a dense fp32 attention
+      on the same q, k and v within 2e-2 absolute plus 2e-2 relative (bf16
+      rounds the probabilities and the output).
+
+   It records the state's bytes, save, plan, execute and restore times
+   (host clock ending in a synchronize), kernel launches and ms (CUDA
+   events around each product), blocks moved against M, each scheme's
+   predicted time, prefill and decode times, and peak memory above the
+   phase's baseline.
+
 The lines before the last are the ``{"planning": [...]}``, ``{"fleet":
-[...]}`` and ``{"kernels": [...]}`` records (the kernel's entry carries its
-fleet-path launches, times and shapes under ``"fleet"``); the last line is
-``{"ok": true, "device": {...}}``.  Without CUDA it exits nonzero and prints
-no result.
+[...]}``, ``{"ft": {...}}`` and ``{"kernels": [...]}`` records (the
+kernel's entry carries its fleet-path and checkpoint-path launches, times
+and shapes under ``"fleet"`` and ``"ft"``); the last line is ``{"ok":
+true, "device": {...}}``.  Without CUDA it exits nonzero and prints no
+result.
 """
 from __future__ import annotations
 
@@ -145,6 +178,18 @@ ENSEMBLE_ROW = "ensemble_n96_K4_star"     # fleet_scale.py:143-149
 ENSEMBLE_CI_KEYS = ("mean_backlog", "regen_p50", "regen_p99",
                     "vulnerability_p99", "unavail_fraction",
                     "mttdl_estimate")
+# phase 6: the reference's walkthrough (examples/regenerate_checkpoint.py:
+# 20-28) at yi-6b's full width
+FT_ARCH = "yi-6b"
+FT_CODER = dict(n=8, k=4, d=6, blocks_per_host=16)
+FT_FLEET = dict(num_pods=2, hosts_per_pod=8, straggler_fraction=0.2)
+FT_HOSTS = [0, 1, 2, 3, 8, 9, 10, 11]
+FT_FAILED = 9
+FT_SCHEMES = ("star", "fr", "tr", "ftr", "auto")
+FT_WINDOW = 4 * MIB                       # payload columns held to plain
+LM_PROMPT, LM_DECODE = 2048, 16
+LM_LOGIT_TOL = 5e-2                       # of the largest |logit|
+ATTN_TOL = 2e-2                           # absolute and relative
 
 
 def log(*parts) -> None:
@@ -863,6 +908,269 @@ def fleet_phase(seed: int, root: pathlib.Path) -> tuple:
     return records, fleet_kernel
 
 
+# -- phase 6: checkpoint regeneration and the LM stack at full width -------
+
+def ft_phase(seed: int, cfg, model) -> tuple:
+    """Phase 6a (see the module docstring): ``model`` (of ``cfg``) is saved
+    as an erasure-coded checkpoint, host FT_FAILED is regenerated with each
+    scheme and the state restored.  Returns (record, the kernel's
+    checkpoint-path entry for the ``kernels`` record)."""
+    from unittest import mock
+
+    from repro_torch.ft import ECCheckpoint, ErasureCoder, Fleet, FleetConfig
+    from repro_torch.ft import checkpoint as ckmod
+    from repro_torch.ft.erasure import tree_flatten
+    from repro_torch.ft.walkthrough import same_bytes
+    from repro_torch.kernels import gf_matmul, gf_matmul_cuda, gf_matmul_ref
+
+    dev = torch.device(DEVICE, torch.cuda.current_device())
+    state = {"params": model.state_dict(),
+             "step": torch.tensor(1000, dtype=torch.int32, device=dev)}
+    want, _ = tree_flatten(state)
+    shape_log = ShapeLog(gf_matmul)
+    coder = ErasureCoder(**FT_CODER, seed=seed, device=dev, matmul=shape_log)
+    ckpt = ECCheckpoint(Fleet(FleetConfig(**FT_FLEET), seed=seed), coder,
+                        FT_HOSTS, seed=seed)
+    base = fresh_peak()
+    gf_matmul_cuda.launches = 0
+    t0 = time.perf_counter()
+    ckpt.save(state, step=1000)
+    torch.cuda.synchronize()
+    save_s = time.perf_counter() - t0
+    save_launches = gf_matmul_cuda.launches
+    group, spec = ckpt.group, ckpt.spec
+    block_bytes = group.block_bytes
+    if not (block_bytes == math.ceil(spec.total_bytes / coder.M)
+            and sorted(group.shards) == sorted(FT_HOSTS)
+            and all(sh.payload.shape == (coder.alpha, block_bytes)
+                    and sh.payload.device == dev
+                    for sh in group.shards.values())):
+        raise AssertionError("the checkpoint's shards are malformed")
+    save_peak = torch.cuda.max_memory_allocated() - base
+    log(f"  save: {spec.total_bytes} B of state ({len(want)} leaves) as "
+        f"M = {coder.M} blocks of {block_bytes} B, {len(FT_HOSTS)} hosts x "
+        f"{coder.alpha} coded blocks on the card; {save_s:.3f} s, "
+        f"{save_launches} launches, peak {save_peak / 2**30:.2f} GiB above "
+        f"the baseline")
+
+    plan_s = []
+    core_plan = ckmod.plan_recovery
+
+    def timed_plan(*a, **kw):
+        t = time.perf_counter()
+        out = core_plan(*a, **kw)
+        plan_s.append(time.perf_counter() - t)
+        return out
+
+    others = [h for h in FT_HOSTS if h != FT_FAILED]
+    repairs = []
+    with mock.patch.object(ckmod, "plan_recovery", timed_plan):
+        for i, scheme in enumerate(FT_SCHEMES):
+            launched = gf_matmul_cuda.launches
+            rec_log = ckpt.on_host_failure(FT_FAILED, scheme=scheme)
+            launched = gf_matmul_cuda.launches - launched
+            shard = group.shards[FT_FAILED]
+            if launched <= 0 or shard.payload.shape != (coder.alpha,
+                                                        block_bytes):
+                raise AssertionError(f"{scheme}: {launched} launches, shard "
+                                     f"{tuple(shard.payload.shape)}")
+            d = rec_log.decision
+            rep = dict(scheme=scheme, chosen=d.plan.scheme,
+                       providers=d.providers, predicted_s=d.predicted_s,
+                       alternatives=d.alternatives,
+                       blocks_moved=rec_log.report.blocks_moved, M=coder.M,
+                       plan_s=plan_s[-1],
+                       execute_s=rec_log.wall_s - plan_s[-1],
+                       launches=launched, restores=[])
+            for hosts in ([FT_FAILED] + others[i:i + 3],
+                          (others * 2)[i + 3:i + 7]):
+                t0 = time.perf_counter()
+                restored = ckpt.restore(hosts)
+                torch.cuda.synchronize()
+                t_restore = time.perf_counter() - t0
+                got, _ = tree_flatten(restored)
+                if len(got) != len(want) or not all(
+                        same_bytes(a, b) for a, b in zip(want, got)):
+                    raise AssertionError(f"{scheme}: restore from {hosts} "
+                                         f"differs")
+                del restored, got
+                rep["restores"].append(dict(hosts=hosts, s=t_restore))
+            repairs.append(rep)
+            log(f"  fail {FT_FAILED}, {scheme}: {d.plan.scheme} predicted "
+                f"{d.predicted_s:.4f} s, {rep['blocks_moved']:.0f} blocks "
+                f"moved (M = {coder.M}); plan {rep['plan_s']:.4f} s, execute "
+                f"{rep['execute_s']:.3f} s ({launched} launches); restore "
+                + ", ".join(f"{r['hosts']} {r['s']:.3f} s"
+                            for r in rep["restores"]) + ": bit for bit")
+    launches = gf_matmul_cuda.launches
+    torch.cuda.synchronize()
+    phase_ms = shape_log.ms_by_shape()
+    if launches <= save_launches or launches != sum(shape_log.shapes.values()):
+        raise AssertionError(f"{launches} kernel launches for "
+                             f"{sum(shape_log.shapes.values())} products")
+    peak = torch.cuda.max_memory_allocated() - base
+    record = dict(arch=cfg.name, source="examples/regenerate_checkpoint.py:"
+                  "20-28", reduced="none", params=sum(
+                      t.numel() for t in model.state_dict().values()),
+                  state_bytes=spec.total_bytes, leaves=len(want),
+                  block_bytes=block_bytes, M=coder.M,
+                  coded_bytes=len(FT_HOSTS) * coder.alpha * block_bytes,
+                  save_s=save_s, save_launches=save_launches,
+                  repairs=repairs, launches=launches,
+                  kernel_ms=sum(phase_ms.values()),
+                  save_peak_gib=save_peak / 2**30, peak_gib=peak / 2**30,
+                  base_gib=base / 2**30)
+    log(f"  checkpoint path: {launches} kernel launches taking "
+        f"{record['kernel_ms']:.3f} ms between their events; peak "
+        f"{record['peak_gib']:.2f} GiB above {record['base_gib']:.2f} GiB")
+    del ckpt, group, coder, state, want, shard
+    fresh_peak()
+
+    # the kernel at every product shape of the phase, on fresh operands at
+    # the full width, against the plain version on column windows
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed + 6)
+    shapes = []
+    for (m, kk, n), calls in sorted(shape_log.shapes.items()):
+        a, b = rand_u8((m, kk), gen), rand_u8((kk, n), gen)
+        got = gf_matmul_cuda(a, b)
+        wins = sorted({(0, min(FT_WINDOW, n)), (max(0, n - FT_WINDOW), n)})
+        bws = [b[:, lo:hi].contiguous() for lo, hi in wins]
+        for (lo, hi), bw in zip(wins, bws):
+            if not torch.equal(got[:, lo:hi], gf_matmul_ref(a, bw)):
+                raise AssertionError(f"kernel != plain at ft shape "
+                                     f"{(m, kk, n)}, columns {lo}:{hi}")
+        del got
+        big = n >= MIB
+        t_bytes, t_ops = bound_terms(m, kk, n)
+        shapes.append(dict(
+            shape=[m, kk, n], calls=calls, ft_ms=phase_ms[(m, kk, n)],
+            ms=cuda_ms(lambda: gf_matmul_cuda(a, b), 2 if big else 20),
+            windows=[list(w) for w in wins],
+            window_ms=sum(cuda_ms(lambda: gf_matmul_cuda(a, bw), 3)
+                          for bw in bws),
+            plain_window_ms=sum(cuda_ms(lambda: gf_matmul_ref(a, bw), 1)
+                                for bw in bws),
+            bound_ms=max(t_bytes, t_ops), bytes_ms=t_bytes, ops_ms=t_ops,
+            bound_by="operations" if t_ops >= t_bytes else "bytes"))
+        del a, b, bws
+        torch.cuda.empty_cache()
+    total = {key: sum(r["calls"] * r[key] for r in shapes)
+             for key in ("ms", "window_ms", "plain_window_ms", "bound_ms",
+                         "bytes_ms", "ops_ms")}
+    for r in sorted(shapes, key=lambda r: -r["ft_ms"])[:8]:
+        log(f"    ft {r['shape'][0]}x{r['shape'][1]}x{r['shape'][2]}: "
+            f"{r['calls']} calls, {r['ft_ms']:.3f} ms in the phase, warm "
+            f"{r['ms']:.3f} ms a call (bound {r['bound_ms']:.3f}, "
+            f"{r['bound_by']}); windows {r['window_ms']:.3f} ms, plain "
+            f"{r['plain_window_ms']:.3f}")
+    ft_kernel = dict(
+        run=f"checkpoint {cfg.name}", launches=launches, ms=record["kernel_ms"],
+        ms_from_shapes=total["ms"], bound_ms=total["bound_ms"],
+        bound_by="operations" if total["ops_ms"] >= total["bytes_ms"]
+        else "bytes", window_ms=total["window_ms"],
+        plain_window_ms=total["plain_window_ms"], library_ms=None,
+        max_abs_err=0, shapes=shapes)
+    return record, ft_kernel
+
+
+def lm_phase(seed: int, cfg, model) -> dict:
+    """Phase 6b (see the module docstring): prefill and teacher-forced
+    decode of ``model`` on the card, held to its parallel forward, and one
+    layer's chunked attention held to a dense fp32 attention."""
+    from repro_torch.models import (decode_step, embed_inputs, forward_hidden,
+                                    init_cache, prefill)
+    from repro_torch.models.layers import chunked_attention
+
+    dev = torch.device(DEVICE, torch.cuda.current_device())
+    S, T = LM_PROMPT, LM_DECODE
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed + 7)
+    toks = torch.randint(0, cfg.vocab_size, (1, S + T), device=dev,
+                         generator=gen)
+    base = fresh_peak()
+    prefill_s = []
+    for _ in range(2):                      # cold, then warm
+        cache = init_cache(cfg, 1, S + T, dtype=torch.bfloat16, device=dev)
+        t0 = time.perf_counter()
+        first, cache = prefill(cfg, model, {"tokens": toks[:, :S]}, cache)
+        torch.cuda.synchronize()
+        prefill_s.append(time.perf_counter() - t0)
+    steps, decode_s = [first], []
+    for i in range(T):                      # each token ends in a sync
+        t0 = time.perf_counter()
+        logits, cache = decode_step(cfg, model, cache, toks[:, S + i:S + i + 1],
+                                    S + i)
+        torch.cuda.synchronize()
+        decode_s.append(time.perf_counter() - t0)
+        steps.append(logits)
+    got = torch.cat(steps)                  # positions S-1 .. S+T-1
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        h = embed_inputs(cfg, model, {"tokens": toks})
+        h, _ = forward_hidden(cfg, model, h, positions=torch.arange(
+            S + T, dtype=torch.int32, device=dev))
+        h = model.final_norm(h)
+        want = h[0, S - 1:].float() @ model.embed.table().float().t()
+        torch.cuda.synchronize()
+        forward_s = time.perf_counter() - t0
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        raise AssertionError("non-finite logits")
+    logit_err = float((got - want).abs().max())
+    logit_scale = float(want.abs().max())
+    if logit_err > LM_LOGIT_TOL * logit_scale:
+        raise AssertionError(f"decode logits differ from the forward's by "
+                             f"{logit_err}, over {LM_LOGIT_TOL} x "
+                             f"{logit_scale}")
+    argmax_equal = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    lm_peak = torch.cuda.max_memory_allocated() - base
+    del h, cache, steps
+
+    # layer 0's chunked attention against a dense fp32 attention
+    with torch.no_grad():
+        pos = torch.arange(S, dtype=torch.int32, device=dev)
+        blk = model.blocks[0]
+        q, k, v = blk.attn.qkv(blk.norm1(model.embed.tokens(toks[:, :S])), pos)
+        t0 = time.perf_counter()
+        att = chunked_attention(q, k, v, causal=True, q_positions=pos,
+                                kv_positions=pos, q_chunk=cfg.q_chunk,
+                                kv_chunk=cfg.kv_chunk)
+        torch.cuda.synchronize()
+        attn_s = time.perf_counter() - t0
+        G = cfg.num_heads // cfg.num_kv_heads
+        scores = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                              k.float().repeat_interleave(G, dim=2)) \
+            / math.sqrt(cfg.head_dim)
+        scores = scores.masked_fill(~torch.tril(torch.ones(
+            S, S, dtype=torch.bool, device=dev)), -math.inf)
+        dense = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(scores, dim=-1),
+                             v.float().repeat_interleave(G, dim=2))
+        diff = (att.float() - dense).abs()
+        attn_err = float(diff.max())
+        if not bool((diff <= ATTN_TOL + ATTN_TOL * dense.abs()).all()):
+            raise AssertionError(f"chunked attention differs from dense by "
+                                 f"{attn_err}")
+    rec = dict(arch=cfg.name, prompt=S, decode_tokens=T,
+               prefill_cold_ms=prefill_s[0] * 1e3,
+               prefill_ms=prefill_s[1] * 1e3,
+               decode_first_ms=decode_s[0] * 1e3,
+               decode_ms_per_token=statistics.median(decode_s[1:]) * 1e3,
+               decode_ms=[t * 1e3 for t in decode_s],
+               forward_ms=forward_s * 1e3, logit_max_abs_err=logit_err,
+               logit_max_abs=logit_scale, logit_tol=LM_LOGIT_TOL,
+               argmax_equal=argmax_equal, attention_ms=attn_s * 1e3,
+               attention_max_abs_err=attn_err, attention_tol=ATTN_TOL,
+               peak_gib=lm_peak / 2**30, base_gib=base / 2**30)
+    log(f"  {cfg.name} prefill S = {S}: {rec['prefill_cold_ms']:.1f} ms cold, "
+        f"{rec['prefill_ms']:.1f} ms warm; decode {rec['decode_first_ms']:.1f} "
+        f"ms the first token, median {rec['decode_ms_per_token']:.2f} ms the "
+        f"others; teacher-forced logits within {logit_err:.4f} of the "
+        f"forward's (largest {logit_scale:.3f}, argmax equal {argmax_equal:.2f})"
+        f"; layer-0 attention within {attn_err:.5f} of dense fp32; peak "
+        f"{rec['peak_gib']:.2f} GiB above {rec['base_gib']:.2f} GiB")
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1011,7 +1319,7 @@ def main(argv=None) -> int:
         f"{sum(shape_log.shapes.values())} GF products taking "
         f"{results['main_path_kernel_ms']} ms between their events, peak "
         f"{results['peak_mem_gib']:.2f} GiB")
-    del sim, file_blocks, newcomer
+    del sim, file_blocks, newcomer, before   # before[0] holds the store
     torch.cuda.empty_cache()
 
     # -- 3. kernel vs plain: mapping probes, every main-path shape, times ----
@@ -1144,11 +1452,30 @@ def main(argv=None) -> int:
     results["fleet"], kernels[0]["fleet"] = fleet_phase(args.seed, root)
     results["fleet_s"] = time.perf_counter() - t0
     log(f"fleet: {results['fleet_s']:.1f} s")
+
+    # -- 6. checkpoint regeneration and the LM stack at full width ----------
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    log(f"checkpoint regeneration and the LM stack ({FT_ARCH} at full width "
+        f"on the card):")
+    t0 = time.perf_counter()
+    cfg = get_config(FT_ARCH)
+    fresh_peak()
+    model = init_params(cfg, args.seed, device=DEVICE)
+    torch.cuda.synchronize()
+    log(f"  init_params: {cfg.param_count()} parameters "
+        f"({cfg.param_dtype}) in {time.perf_counter() - t0:.2f} s")
+    ft_rec, kernels[0]["ft"] = ft_phase(args.seed, cfg, model)
+    results["ft"] = dict(checkpoint=ft_rec, lm=lm_phase(args.seed, cfg, model))
+    del model
+    results["ft_s"] = time.perf_counter() - t0
+    log(f"checkpoint and LM: {results['ft_s']:.1f} s")
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(results, indent=1))
     log(json.dumps({"planning": results["planning"]}))
     log(json.dumps({"fleet": results["fleet"]}))
+    log(json.dumps({"ft": results["ft"]}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

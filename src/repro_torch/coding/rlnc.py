@@ -161,6 +161,22 @@ class RLNC:
         if len(idx) < M:
             raise ValueError(f"rank {len(idx)} < M={M}: cannot reconstruct")
         inv = self.field.inv_matrix(V[idx])
-        rows = torch.tensor(idx, device=self.device)
-        P = torch.cat([nd.payload for nd in nodes]).index_select(0, rows)
-        return self._matmul(torch.from_numpy(inv).to(self.device), P)
+        return self._matmul(torch.from_numpy(inv).to(self.device),
+                            _take_rows([nd.payload for nd in nodes], idx))
+
+
+def _take_rows(parts: Sequence[torch.Tensor], idx: List[int]) -> torch.Tensor:
+    """Rows ``idx`` (increasing) of the parts stacked in order, gathered in
+    one copy: a part whose rows are all taken joins whole, the others give
+    only the rows taken."""
+    pieces, off = [], 0
+    for part in parts:
+        n = part.shape[0]
+        sel = [i - off for i in idx if off <= i < off + n]
+        if sel == list(range(n)):
+            pieces.append(part)
+        elif sel:
+            pieces.append(part.index_select(
+                0, torch.tensor(sel, device=part.device)))
+        off += n
+    return torch.cat(pieces)

@@ -43,6 +43,13 @@ def test_import_leaves_jax_and_reference_out():
     assert {f"repro_torch.core.{m}" for m in (
         "batched", "torch_engine", "infoflow", "ort", "extensions")} \
         <= set(MODULES)
+    assert {f"repro_torch.ft.{m}" for m in (
+        "erasure", "checkpoint", "executor", "planner", "walkthrough")} \
+        <= set(MODULES)
+    assert {f"repro_torch.models.{m}" for m in (
+        "config", "layers", "moe", "ssd", "transformer", "convert")} \
+        <= set(MODULES)
+    assert {"repro_torch.configs", "repro_torch.configs.yi_6b"} <= set(MODULES)
 
 
 @pytest.mark.parametrize("path", [ROOT / "chip_smoke.py",
@@ -90,6 +97,20 @@ def test_entry_points_raise_without_cuda(no_cuda):
         gf_matmul_numpy(a, a)
     sim = RlncSimulator(params, device="cpu")
     assert sim.file_blocks.device.type == "cpu"
+
+
+def test_ft_and_models_raise_without_cuda(no_cuda):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.ft import ErasureCoder, tree_to_bytes, walkthrough
+    from repro_torch.models import Transformer, init_cache, init_params
+    cfg = get_smoke_config("yi-6b")
+    for make in (ErasureCoder, lambda: tree_to_bytes({"a": torch.ones(2)}),
+                 lambda: init_params(cfg), lambda: Transformer(cfg),
+                 lambda: init_cache(cfg, 1, 4), lambda: walkthrough.main([])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+    assert ErasureCoder(device="cpu").device == torch.device("cpu")
+    assert init_params(cfg, device="cpu").device == torch.device("cpu")
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

@@ -122,6 +122,18 @@ def test_reconstruct_matches_reference(planes):
         assert port.can_reconstruct([port_nodes[i] for i in ids], M)
 
 
+def test_reconstruct_takes_part_of_a_node(planes):
+    """A node with more rows than the decode needs gives only the rows
+    taken (six combinations of four blocks: rank four)."""
+    ref, port, file_blocks, ref_nodes, port_nodes, r1, r2 = planes
+    extra_ref = ref.encode(ref_nodes[2], 6, r1)
+    extra = port.encode(port_nodes[2], 6, r2)
+    got = port.reconstruct([port_nodes[0], port_nodes[1], extra], M)
+    want = ref.reconstruct([ref_nodes[0], ref_nodes[1], extra_ref], M)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), file_blocks)
+
+
 def test_reconstruct_rank_deficient_raises(planes):
     ref, port, _, ref_nodes, port_nodes, r1, r2 = planes
     # two nodes hold 8 < M = 12 independent blocks
