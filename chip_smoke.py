@@ -114,17 +114,50 @@ nonzero:
    predicted time, prefill and decode times, and peak memory above the
    phase's baseline.
 
+7. Serving and training on the card (``repro_torch.serve``,
+   ``repro_torch.train``):
+
+   a. phase 6's yi-6b behind ``ServeEngine(slots=4, max_len=1024)``: 6
+      requests (more than the slots, so the queue refills) with prompts of
+      64 to 512 tokens, mixed so that prompts are left-padded, 32 new
+      tokens each, 4 greedy and 2 at temperature 0.8.  The completions must
+      have the right ids, lengths and token range; each greedy token's
+      logit in the parallel forward over the same padded sequence must be
+      within 5 % of the largest |logit| of the forward's largest logit (the
+      gate of 6b); a second engine with the same seed must give the same
+      tokens.  Records prefill ms per chunk, decode ms per step, tokens/s
+      and peak memory.
+   b. ``train`` on olmo-1b at its published width (1,279,787,008 bf16
+      parameters, AdamW with fp32 moments and an fp32 accumulator, the
+      reference's dtype policy): batches of 4 x 2048 tokens in 2
+      microbatches, 8 steps, an n=8 k=4 d=6 checkpoint (16 blocks a host)
+      every 4 steps, once uninterrupted and once with host 3 failing after
+      step 5, regenerated with FTR through the kernel and restored.  Every
+      loss must be finite; the decoded state must equal the saved bytes;
+      the replayed losses must equal the uninterrupted run's within rtol
+      1e-5 (whether they and the final parameters are bitwise equal is
+      recorded, with the parameters whose gradients differ between two
+      backward passes of one microbatch, with and without
+      ``torch.use_deterministic_algorithms``); the kernel's launch counter,
+      zeroed first, must rise and equal the products; afterwards the kernel
+      is held to the plain version at every product shape of the phase on
+      column windows, as in 6a.  Records step times, tokens/s, save, plan,
+      execute and restore times (host clock ending in a synchronize),
+      kernel launches and ms (CUDA events), and peak memory above the
+      phase's baseline.
+
 The lines before the last are the ``{"planning": [...]}``, ``{"fleet":
-[...]}``, ``{"ft": {...}}`` and ``{"kernels": [...]}`` records (the
-kernel's entry carries its fleet-path and checkpoint-path launches, times
-and shapes under ``"fleet"`` and ``"ft"``); the last line is ``{"ok":
-true, "device": {...}}``.  Without CUDA it exits nonzero and prints no
-result.
+[...]}``, ``{"ft": {...}}``, ``{"train": {...}}`` and ``{"kernels":
+[...]}`` records (the kernel's entry carries its fleet-path,
+checkpoint-path and train-path launches, times and shapes under
+``"fleet"``, ``"ft"`` and ``"train"``); the last line is ``{"ok": true,
+"device": {...}}``.  Without CUDA it exits nonzero and prints no result.
 """
 from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import dataclasses
 import gc
 import json
@@ -190,6 +223,17 @@ FT_WINDOW = 4 * MIB                       # payload columns held to plain
 LM_PROMPT, LM_DECODE = 2048, 16
 LM_LOGIT_TOL = 5e-2                       # of the largest |logit|
 ATTN_TOL = 2e-2                           # absolute and relative
+# phase 7: serving at yi-6b (phase 6's model), training olmo-1b at its
+# published width (src/repro/configs/olmo_1b.py:6-10) with a host failure
+SERVE_SLOTS, SERVE_MAX_LEN, SERVE_NEW = 4, 1024, 32
+SERVE_REQUESTS = [(512, 0.0), (64, 0.0), (300, 0.8), (200, 0.0),
+                  (448, 0.8), (96, 0.0)]  # (prompt tokens, temperature)
+TRAIN_ARCH = "olmo-1b"
+TRAIN_DATA = dict(batch=4, seq_len=2048)
+TRAIN_LOOP = dict(steps=8, ckpt_every=4, n_micro=2, ec_n=8, ec_k=4, ec_d=6,
+                  blocks_per_host=16)
+TRAIN_FAIL = {5: 3}                       # host 3 fails after step 5
+TRAIN_RTOL = 1e-5                         # replayed losses, the reference's
 
 
 def log(*parts) -> None:
@@ -910,6 +954,53 @@ def fleet_phase(seed: int, root: pathlib.Path) -> tuple:
 
 # -- phase 6: checkpoint regeneration and the LM stack at full width -------
 
+def kernel_at_shapes(shape_log: "ShapeLog", phase_ms, seed: int,
+                     label: str) -> tuple:
+    """The kernel at every product shape ``shape_log`` saw, on fresh
+    operands at the full width, held to the plain version on column windows
+    (the first and the last FT_WINDOW bytes, which hold the ragged tail) and
+    timed beside its bound.  Returns (rows, totals over the calls)."""
+    from repro_torch.kernels import gf_matmul_cuda, gf_matmul_ref
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed)
+    shapes = []
+    for (m, kk, n), calls in sorted(shape_log.shapes.items()):
+        a, b = rand_u8((m, kk), gen), rand_u8((kk, n), gen)
+        got = gf_matmul_cuda(a, b)
+        wins = sorted({(0, min(FT_WINDOW, n)), (max(0, n - FT_WINDOW), n)})
+        bws = [b[:, lo:hi].contiguous() for lo, hi in wins]
+        for (lo, hi), bw in zip(wins, bws):
+            if not torch.equal(got[:, lo:hi], gf_matmul_ref(a, bw)):
+                raise AssertionError(f"kernel != plain at {label} shape "
+                                     f"{(m, kk, n)}, columns {lo}:{hi}")
+        del got
+        big = n >= MIB
+        t_bytes, t_ops = bound_terms(m, kk, n)
+        shapes.append(dict(
+            shape=[m, kk, n], calls=calls, phase_ms=phase_ms[(m, kk, n)],
+            ms=cuda_ms(lambda: gf_matmul_cuda(a, b), 2 if big else 20),
+            windows=[list(w) for w in wins],
+            window_ms=sum(cuda_ms(lambda: gf_matmul_cuda(a, bw), 3)
+                          for bw in bws),
+            plain_window_ms=sum(cuda_ms(lambda: gf_matmul_ref(a, bw), 1)
+                                for bw in bws),
+            bound_ms=max(t_bytes, t_ops), bytes_ms=t_bytes, ops_ms=t_ops,
+            bound_by="operations" if t_ops >= t_bytes else "bytes"))
+        del a, b, bws
+        torch.cuda.empty_cache()
+    total = {key: sum(r["calls"] * r[key] for r in shapes)
+             for key in ("ms", "window_ms", "plain_window_ms", "bound_ms",
+                         "bytes_ms", "ops_ms")}
+    for r in sorted(shapes, key=lambda r: -r["phase_ms"])[:8]:
+        log(f"    {label} {r['shape'][0]}x{r['shape'][1]}x{r['shape'][2]}: "
+            f"{r['calls']} calls, {r['phase_ms']:.3f} ms in the phase, warm "
+            f"{r['ms']:.3f} ms a call (bound {r['bound_ms']:.3f}, "
+            f"{r['bound_by']}); windows {r['window_ms']:.3f} ms, plain "
+            f"{r['plain_window_ms']:.3f}")
+    return shapes, total
+
+
 def ft_phase(seed: int, cfg, model) -> tuple:
     """Phase 6a (see the module docstring): ``model`` (of ``cfg``) is saved
     as an erasure-coded checkpoint, host FT_FAILED is regenerated with each
@@ -921,7 +1012,7 @@ def ft_phase(seed: int, cfg, model) -> tuple:
     from repro_torch.ft import checkpoint as ckmod
     from repro_torch.ft.erasure import tree_flatten
     from repro_torch.ft.walkthrough import same_bytes
-    from repro_torch.kernels import gf_matmul, gf_matmul_cuda, gf_matmul_ref
+    from repro_torch.kernels import gf_matmul, gf_matmul_cuda
 
     dev = torch.device(DEVICE, torch.cuda.current_device())
     state = {"params": model.state_dict(),
@@ -1026,44 +1117,7 @@ def ft_phase(seed: int, cfg, model) -> tuple:
     del ckpt, group, coder, state, want, shard
     fresh_peak()
 
-    # the kernel at every product shape of the phase, on fresh operands at
-    # the full width, against the plain version on column windows
-    gen = torch.Generator(device=DEVICE)
-    gen.manual_seed(seed + 6)
-    shapes = []
-    for (m, kk, n), calls in sorted(shape_log.shapes.items()):
-        a, b = rand_u8((m, kk), gen), rand_u8((kk, n), gen)
-        got = gf_matmul_cuda(a, b)
-        wins = sorted({(0, min(FT_WINDOW, n)), (max(0, n - FT_WINDOW), n)})
-        bws = [b[:, lo:hi].contiguous() for lo, hi in wins]
-        for (lo, hi), bw in zip(wins, bws):
-            if not torch.equal(got[:, lo:hi], gf_matmul_ref(a, bw)):
-                raise AssertionError(f"kernel != plain at ft shape "
-                                     f"{(m, kk, n)}, columns {lo}:{hi}")
-        del got
-        big = n >= MIB
-        t_bytes, t_ops = bound_terms(m, kk, n)
-        shapes.append(dict(
-            shape=[m, kk, n], calls=calls, ft_ms=phase_ms[(m, kk, n)],
-            ms=cuda_ms(lambda: gf_matmul_cuda(a, b), 2 if big else 20),
-            windows=[list(w) for w in wins],
-            window_ms=sum(cuda_ms(lambda: gf_matmul_cuda(a, bw), 3)
-                          for bw in bws),
-            plain_window_ms=sum(cuda_ms(lambda: gf_matmul_ref(a, bw), 1)
-                                for bw in bws),
-            bound_ms=max(t_bytes, t_ops), bytes_ms=t_bytes, ops_ms=t_ops,
-            bound_by="operations" if t_ops >= t_bytes else "bytes"))
-        del a, b, bws
-        torch.cuda.empty_cache()
-    total = {key: sum(r["calls"] * r[key] for r in shapes)
-             for key in ("ms", "window_ms", "plain_window_ms", "bound_ms",
-                         "bytes_ms", "ops_ms")}
-    for r in sorted(shapes, key=lambda r: -r["ft_ms"])[:8]:
-        log(f"    ft {r['shape'][0]}x{r['shape'][1]}x{r['shape'][2]}: "
-            f"{r['calls']} calls, {r['ft_ms']:.3f} ms in the phase, warm "
-            f"{r['ms']:.3f} ms a call (bound {r['bound_ms']:.3f}, "
-            f"{r['bound_by']}); windows {r['window_ms']:.3f} ms, plain "
-            f"{r['plain_window_ms']:.3f}")
+    shapes, total = kernel_at_shapes(shape_log, phase_ms, seed + 6, "ft")
     ft_kernel = dict(
         run=f"checkpoint {cfg.name}", launches=launches, ms=record["kernel_ms"],
         ms_from_shapes=total["ms"], bound_ms=total["bound_ms"],
@@ -1169,6 +1223,333 @@ def lm_phase(seed: int, cfg, model) -> dict:
         f"; layer-0 attention within {attn_err:.5f} of dense fp32; peak "
         f"{rec['peak_gib']:.2f} GiB above {rec['base_gib']:.2f} GiB")
     return rec
+
+
+# -- phase 7: serving and training with a host failure ---------------------
+
+class TimedCalls:
+    """Wraps a function so each call ends in a synchronize and its host time
+    is kept (``seconds``)."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.seconds = []
+
+    def __call__(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = self.fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        self.seconds.append(time.perf_counter() - t0)
+        return out
+
+
+def spread(seconds) -> dict:
+    ms = [t * 1e3 for t in seconds]
+    return dict(median=statistics.median(ms), min=min(ms), max=max(ms),
+                n=len(ms)) if ms else dict(n=0)
+
+
+def serve_phase(seed: int, cfg, model) -> dict:
+    """Phase 7a (see the module docstring): the serving engine over
+    ``model`` on the card."""
+    from unittest import mock
+
+    from repro_torch.models import embed_inputs, forward_hidden
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.serve import engine as engmod
+
+    dev = torch.device(DEVICE, torch.cuda.current_device())
+    rng = np.random.default_rng(seed + 70)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, n).tolist(),
+                    max_new_tokens=SERVE_NEW, temperature=temp, rid=i)
+            for i, (n, temp) in enumerate(SERVE_REQUESTS)]
+    base = fresh_peak()
+    runs = []
+    for _ in range(2):                  # the second engine: the same seed
+        prefill_t = TimedCalls(engmod.prefill)
+        decode_t = TimedCalls(engmod.decode_step)
+        eng = ServeEngine(cfg, model, slots=SERVE_SLOTS,
+                          max_len=SERVE_MAX_LEN, seed=seed, device=dev)
+        with mock.patch.object(engmod, "prefill", prefill_t), \
+                mock.patch.object(engmod, "decode_step", decode_t):
+            t0 = time.perf_counter()
+            outs = eng.generate(reqs)
+            wall = time.perf_counter() - t0
+        runs.append((outs, wall, prefill_t.seconds, decode_t.seconds))
+    outs, wall, prefill_s, decode_s = runs[0]
+    if [o.rid for o in outs] != [r.rid for r in reqs] or any(
+            len(o.tokens) != r.max_new_tokens
+            or not all(0 <= t < cfg.vocab_size for t in o.tokens)
+            for o, r in zip(outs, reqs)):
+        raise AssertionError("malformed completions")
+    if [o.tokens for o in runs[1][0]] != [o.tokens for o in outs]:
+        raise AssertionError("a second engine with the same seed drew "
+                             "other tokens")
+    # each greedy token against the parallel forward over the same padded
+    # sequence (the chunk's left padding, the tokens fed before it)
+    worst = 0.0
+    with torch.no_grad():
+        for c0 in range(0, len(reqs), SERVE_SLOTS):
+            chunk = list(zip(reqs, outs))[c0:c0 + SERVE_SLOTS]
+            plen = max(len(r.prompt) for r, _ in chunk)
+            for r, o in chunk:
+                if r.temperature > 0:
+                    continue
+                seq = [0] * (plen - len(r.prompt)) + r.prompt + o.tokens[:-1]
+                toks = torch.tensor([seq], dtype=torch.int32, device=dev)
+                h = embed_inputs(cfg, model, {"tokens": toks})
+                h, _ = forward_hidden(cfg, model, h, positions=torch.arange(
+                    len(seq), dtype=torch.int32, device=dev))
+                h = model.final_norm(h)
+                want = h[0, plen - 1:].float() @ model.embed.table().float().t()
+                picked = want.gather(1, torch.tensor(
+                    o.tokens, device=dev)[:, None])[:, 0]
+                gap = float((want.max(-1).values - picked).max())
+                scale = float(want.abs().max())
+                worst = max(worst, gap / scale)
+                if not torch.isfinite(want).all() or gap > LM_LOGIT_TOL * scale:
+                    raise AssertionError(f"request {r.rid}: a greedy token is "
+                                         f"{gap} below the forward's largest "
+                                         f"logit, over {LM_LOGIT_TOL} x {scale}")
+                del h, want
+    n_tok = sum(len(o.tokens) for o in outs)
+    rec = dict(arch=cfg.name, slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+               requests=[dict(rid=r.rid, prompt=len(r.prompt),
+                              temperature=r.temperature) for r in reqs],
+               new_tokens=SERVE_NEW, tokens=n_tok, wall_s=wall,
+               tokens_per_s=n_tok / wall,
+               prefill_ms=[t * 1e3 for t in prefill_s],
+               decode_ms=spread(decode_s),
+               second_engine_wall_s=runs[1][1],
+               greedy_worst_gap=worst, logit_tol=LM_LOGIT_TOL,
+               peak_gib=(torch.cuda.max_memory_allocated() - base) / 2**30,
+               base_gib=base / 2**30)
+    log(f"  serve {cfg.name}: {len(reqs)} requests over {SERVE_SLOTS} slots, "
+        f"{n_tok} tokens in {wall:.2f} s ({rec['tokens_per_s']:.1f} tokens/s); "
+        f"prefill " + ", ".join(f"{t:.1f}" for t in rec["prefill_ms"])
+        + f" ms a chunk; decode median {rec['decode_ms']['median']:.2f} ms a "
+        f"step ({rec['decode_ms']['min']:.1f}-{rec['decode_ms']['max']:.1f}); "
+        f"greedy tokens within {worst:.4f} of the forward's largest logit; "
+        f"sampled tokens repeat; peak {rec['peak_gib']:.2f} GiB above "
+        f"{rec['base_gib']:.2f} GiB")
+    return rec
+
+
+@contextlib.contextmanager
+def expandable_segments():
+    """The allocator's expandable segments, for phase 7b's runs only.  The
+    restore needs a 12 GiB block after training has split the cached
+    segments: with fixed segments 18.8 GiB sat reserved in them,
+    unallocated, and the restore ran out of memory.  In a run that had
+    them on throughout, phase 2's kernel events and phase 6's save read
+    1.5-2x their times with fixed segments."""
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    try:
+        yield
+    finally:
+        torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+
+
+def nondeterministic_params(cfg, model, batch) -> list:
+    """Names of the parameters whose gradient differs between two backward
+    passes over the same microbatch."""
+    from repro_torch.models import loss_fn
+
+    grads = []
+    for _ in range(2):
+        loss_fn(cfg, model, batch).backward()
+        grads.append({n: p.grad for n, p in model.named_parameters()})
+        model.zero_grad(set_to_none=True)
+    return sorted(n for n in grads[0] if not torch.equal(grads[0][n],
+                                                          grads[1][n]))
+
+
+def train_phase(seed: int) -> tuple:
+    """Phase 7b (see the module docstring): ``train`` at olmo-1b's full
+    width with and without a host failure.  Returns (record, the kernel's
+    train-path entry for the ``kernels`` record)."""
+    from unittest import mock
+
+    from repro_torch.configs import get_config
+    from repro_torch.ft import ECCheckpoint, ErasureCoder
+    from repro_torch.ft import checkpoint as ckmod
+    from repro_torch.ft.erasure import tree_to_bytes
+    from repro_torch.kernels import gf_matmul, gf_matmul_cuda
+    from repro_torch.train import (DataConfig, LoopConfig, OptimizerConfig,
+                                   SyntheticLM, train)
+    from repro_torch.train import loop as loopmod
+
+    cfg = get_config(TRAIN_ARCH)
+    dev = torch.device(DEVICE, torch.cuda.current_device())
+    shape_log = ShapeLog(gf_matmul)
+    timings = collections.defaultdict(list)
+
+    class TimedCheckpoint(ECCheckpoint):
+        """Times save and restore (each ending in a synchronize); with
+        ``keep`` set, keeps each saved state's bytes on the host and checks
+        a restore against them byte for byte."""
+        keep = False
+
+        def save(self, state, step):
+            t0 = time.perf_counter()
+            super().save(state, step)
+            torch.cuda.synchronize()
+            timings["save_s"].append(time.perf_counter() - t0)
+            if self.keep:
+                self.saved = tree_to_bytes(state, device="cpu")[0]
+
+        def restore(self, from_hosts=None):
+            t0 = time.perf_counter()
+            buf = self.coder.reconstruct(self.group, from_hosts)
+            torch.cuda.synchronize()
+            timings["restore_s"].append(time.perf_counter() - t0)
+            step = 1 << 30
+            if buf.shape != self.saved.shape or not all(
+                    torch.equal(buf[i:i + step],
+                                self.saved[i:i + step].to(buf.device))
+                    for i in range(0, len(buf), step)):
+                raise AssertionError("the restored state differs from the "
+                                     "saved one")
+            timings["restored_bytes"].append(len(buf))
+            return ckmod.bytes_to_tree(buf, self.spec)
+
+    plan = ckmod.plan_recovery
+
+    def timed_plan(*a, **kw):
+        t0 = time.perf_counter()
+        out = plan(*a, **kw)
+        timings["plan_s"].append(time.perf_counter() - t0)
+        return out
+
+    make_step = loopmod.make_train_step
+
+    def run(fail_at):
+        TimedCheckpoint.keep = bool(fail_at)
+        steps = []
+
+        def make(*a, **kw):
+            steps.append(TimedCalls(make_step(*a, **kw)))
+            return steps[-1]
+
+        with expandable_segments(), \
+                mock.patch.object(loopmod, "make_train_step", make), \
+                mock.patch.object(loopmod, "ECCheckpoint", TimedCheckpoint), \
+                mock.patch.object(loopmod, "ErasureCoder", lambda **kw:
+                                  ErasureCoder(**kw, matmul=shape_log)), \
+                mock.patch.object(ckmod, "plan_recovery", timed_plan):
+            res = train(cfg, DataConfig(seed=seed, **TRAIN_DATA),
+                        OptimizerConfig(), LoopConfig(seed=seed, **TRAIN_LOOP),
+                        fail_at=fail_at, scheme="ftr", log=lambda s: None,
+                        device=dev)
+        return res, steps[0].seconds
+
+    log(f"  train {cfg.name} ({cfg.param_count()} {cfg.param_dtype} "
+        f"parameters, AdamW fp32 moments): batch {TRAIN_DATA['batch']} x "
+        f"{TRAIN_DATA['seq_len']}, {TRAIN_LOOP['n_micro']} microbatches")
+    base = fresh_peak()
+    gf_matmul_cuda.launches = 0
+    plain, plain_steps = run({})
+    plain_params = {n: t.cpu() for n, t in
+                    plain.final_state["params"].state_dict().items()}
+    plain_launches = gf_matmul_cuda.launches
+    plain_losses = plain.losses
+    del plain
+    t_plain = dict(timings)
+    timings.clear()
+    failed, failed_steps = run(dict(TRAIN_FAIL))
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = gf_matmul_cuda.launches
+    torch.cuda.synchronize()
+    phase_ms = shape_log.ms_by_shape()
+    if not (plain_launches > 0 and launches > plain_launches
+            and launches == sum(shape_log.shapes.values())):
+        raise AssertionError(f"{launches} kernel launches for "
+                             f"{sum(shape_log.shapes.values())} products")
+    losses = failed.losses
+    if not all(math.isfinite(x) for x in losses + plain_losses):
+        raise AssertionError("a loss is not finite")
+    [(fail_step, host)] = TRAIN_FAIL.items()
+    ckpt_step = (fail_step + 1) // TRAIN_LOOP["ckpt_every"] * \
+        TRAIN_LOOP["ckpt_every"]
+    replay = losses[fail_step + 1:]
+    want = plain_losses[ckpt_step:]
+    if len(failed.recoveries) != 1 or len(replay) != len(want) or not all(
+            abs(a - b) <= TRAIN_RTOL * abs(b) for a, b in zip(replay, want)):
+        raise AssertionError(f"replayed losses {replay} differ from the "
+                             f"uninterrupted run's {want}")
+    if not timings["restored_bytes"]:
+        raise AssertionError("the run restored nothing")
+    losses_equal = replay == want
+    final = failed.final_state["params"].state_dict()
+    params_equal = all(torch.equal(final[n].cpu(), plain_params[n])
+                       for n in plain_params)
+    rec_log = failed.recoveries[0]
+    model = failed.final_state["params"]
+    del failed.final_state["opt"], plain_params, final
+    fresh_peak()
+    # which gradients differ between two backward passes of one microbatch,
+    # with the default algorithms and with the deterministic ones
+    batch = SyntheticLM(DataConfig(seed=seed, **TRAIN_DATA), cfg,
+                        device=dev).batch_at(0)
+    half = TRAIN_DATA["batch"] // TRAIN_LOOP["n_micro"]
+    batch = {k: v[:half] for k, v in batch.items()}
+    differ = nondeterministic_params(cfg, model, batch)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        differ_det = nondeterministic_params(cfg, model, batch)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    del model, batch, failed
+    fresh_peak()
+
+    tokens = TRAIN_DATA["batch"] * TRAIN_DATA["seq_len"]
+    step_s = plain_steps + failed_steps
+    rec = dict(
+        arch=cfg.name, source="src/repro/configs/olmo_1b.py:6-10",
+        reduced="steps (8), batch (4 x 2048)", params=cfg.param_count(),
+        state_bytes=timings["restored_bytes"][0], data=TRAIN_DATA,
+        loop=TRAIN_LOOP, fail_at={str(k): v for k, v in TRAIN_FAIL.items()},
+        losses=losses, plain_losses=plain_losses,
+        replayed_losses_equal=losses_equal,
+        final_params_equal=params_equal, nondeterministic_grads=differ,
+        nondeterministic_grads_deterministic_algorithms=differ_det,
+        step_ms=spread(step_s), tokens_per_s=tokens / statistics.median(
+            step_s),
+        save_s=t_plain["save_s"] + timings["save_s"],
+        plan_s=timings["plan_s"], regen_s=rec_log.wall_s,
+        execute_s=rec_log.wall_s - timings["plan_s"][-1],
+        restore_s=timings["restore_s"], chosen=rec_log.decision.plan.scheme,
+        predicted_s=rec_log.decision.predicted_s,
+        blocks_moved=rec_log.report.blocks_moved,
+        launches=launches, plain_run_launches=plain_launches,
+        kernel_ms=sum(phase_ms.values()), peak_gib=peak / 2**30,
+        base_gib=base / 2**30)
+    log(f"  train: losses {', '.join(f'{x:.4f}' for x in losses)}; host "
+        f"{host} failed after step {fail_step}, regenerated with "
+        f"{rec['chosen']} in {rec['regen_s']:.3f} s (plan "
+        f"{rec['plan_s'][-1]:.4f} s), restored byte for byte in "
+        f"{rec['restore_s'][-1]:.3f} s; replayed losses "
+        f"{'bitwise equal to' if losses_equal else 'within rtol of'} the "
+        f"uninterrupted run's, final parameters "
+        f"{'bitwise equal' if params_equal else 'not bitwise equal'}; "
+        f"gradients differing between two passes: {differ or 'none'} "
+        f"(deterministic algorithms: {differ_det or 'none'})")
+    log(f"  train: step median {rec['step_ms']['median']:.1f} ms "
+        f"({rec['step_ms']['min']:.1f}-{rec['step_ms']['max']:.1f}), "
+        f"{rec['tokens_per_s']:.0f} tokens/s; save "
+        + ", ".join(f"{t:.3f}" for t in rec["save_s"]) + " s; "
+        f"{launches} kernel launches taking {rec['kernel_ms']:.3f} ms; peak "
+        f"{rec['peak_gib']:.2f} GiB above {rec['base_gib']:.2f} GiB")
+
+    shapes, total = kernel_at_shapes(shape_log, phase_ms, seed + 7, "train")
+    train_kernel = dict(
+        run=f"train {cfg.name}", launches=launches, ms=rec["kernel_ms"],
+        ms_from_shapes=total["ms"], bound_ms=total["bound_ms"],
+        bound_by="operations" if total["ops_ms"] >= total["bytes_ms"]
+        else "bytes", window_ms=total["window_ms"],
+        plain_window_ms=total["plain_window_ms"], library_ms=None,
+        max_abs_err=0, shapes=shapes)
+    return rec, train_kernel
 
 
 def main(argv=None) -> int:
@@ -1467,15 +1848,26 @@ def main(argv=None) -> int:
         f"({cfg.param_dtype}) in {time.perf_counter() - t0:.2f} s")
     ft_rec, kernels[0]["ft"] = ft_phase(args.seed, cfg, model)
     results["ft"] = dict(checkpoint=ft_rec, lm=lm_phase(args.seed, cfg, model))
-    del model
     results["ft_s"] = time.perf_counter() - t0
     log(f"checkpoint and LM: {results['ft_s']:.1f} s")
+
+    # -- 7. serving (the same model), then training with a host failure -----
+    log(f"serving {FT_ARCH} and training {TRAIN_ARCH} at full width on the "
+        f"card:")
+    t0 = time.perf_counter()
+    serve_rec = serve_phase(args.seed, cfg, model)
+    del model
+    train_rec, kernels[0]["train"] = train_phase(args.seed)
+    results["train"] = dict(serve=serve_rec, train=train_rec)
+    results["train_s"] = time.perf_counter() - t0
+    log(f"serving and training: {results['train_s']:.1f} s")
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(results, indent=1))
     log(json.dumps({"planning": results["planning"]}))
     log(json.dumps({"fleet": results["fleet"]}))
     log(json.dumps({"ft": results["ft"]}))
+    log(json.dumps({"train": results["train"]}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -38,11 +38,14 @@ from ..device import DeviceLike, resolve_device
 @dataclasses.dataclass(frozen=True)
 class TreeDef:
     """The structure of a tree without its leaves: ``kind`` is "leaf",
-    "none", "dict", "odict", "list" or "tuple"; ``keys`` the dict keys in
-    leaf order; ``children`` the subtrees."""
+    "none", "dict", "odict", "list", "tuple" or "namedtuple"; ``keys`` the
+    dict keys in leaf order; ``children`` the subtrees; ``cls`` a
+    namedtuple's class (``jax.tree_util`` keeps it, so a restored
+    ``OptState`` is an ``OptState``)."""
     kind: str
     keys: Tuple[Any, ...] = ()
     children: Tuple["TreeDef", ...] = ()
+    cls: Optional[type] = None
 
 
 _LEAF = TreeDef("leaf")
@@ -60,6 +63,8 @@ def tree_flatten(tree: Any) -> Tuple[List[Any], TreeDef]:
     elif isinstance(tree, (list, tuple)):
         keys, vals = (), list(tree)
         kind = "list" if isinstance(tree, list) else "tuple"
+        if hasattr(tree, "_fields"):
+            kind = "namedtuple"
     else:
         return [tree], _LEAF
     leaves, children = [], []
@@ -67,7 +72,8 @@ def tree_flatten(tree: Any) -> Tuple[List[Any], TreeDef]:
         lv, td = tree_flatten(v)
         leaves += lv
         children.append(td)
-    return leaves, TreeDef(kind, keys, tuple(children))
+    return leaves, TreeDef(kind, keys, tuple(children),
+                           type(tree) if kind == "namedtuple" else None)
 
 
 def tree_unflatten(treedef: TreeDef, leaves: Sequence[Any]) -> Any:
@@ -86,6 +92,8 @@ def _build(td: TreeDef, it) -> Any:
         return dict(zip(td.keys, vals))
     if td.kind == "odict":
         return collections.OrderedDict(zip(td.keys, vals))
+    if td.kind == "namedtuple":
+        return td.cls(*vals)
     return vals if td.kind == "list" else tuple(vals)
 
 

@@ -1,10 +1,11 @@
 """Model configuration for all assigned architecture families.
 
 A copy of ``repro.models.config`` (dimensions only), so ``param_count()``
-and every field compare equal with the reference's.  ``seq_parallel``,
-``remat``, ``remat_policy`` and the sharding motive of ``repeat_kv`` act on
-sharding and rematerialisation, which the port does not do yet: they have
-no effect here (``repeat_kv`` gives the same numbers as the GQA grouping).
+and every field compare equal with the reference's.  ``remat`` and
+``remat_policy`` choose what a training forward recomputes in the backward
+(``models.transformer``).  ``seq_parallel`` and the sharding motive of
+``repeat_kv`` act on sharding, which the port does not do yet: they have no
+effect here (``repeat_kv`` gives the same numbers as the GQA grouping).
 """
 from __future__ import annotations
 

@@ -19,7 +19,13 @@ takes precomputed frame embeddings.
 The entry points keep the reference's signatures, with the model module
 in place of the parameter tree: ``loss_fn(cfg, model, batch)``,
 ``prefill(cfg, model, batch, cache)``, ``decode_step(cfg, model, cache,
-tokens, pos)``.  Forward only: backward and remat come with training.
+tokens, pos)``.  Gradients are autograd's.  With ``cfg.remat``, a training
+forward (no cache, autograd on) recomputes each layer's body in the
+backward (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``
+around the scanned body); ``remat_policy="dots"`` keeps the outputs of the
+matmuls without batch dimensions instead of recomputing them (the
+reference's ``dots_with_no_batch_dims_saveable``).  Remat changes memory,
+not numbers.
 
 Caches keep the reference's layout: attention k/v (L, B, S_max, KV, hd);
 ssm conv (L, B, conv-1, di+2N) and state (L, B, Hs, P, N); hybrid adds the
@@ -29,11 +35,14 @@ writes a cache in place and returns the same dict.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..device import DeviceLike, resolve_device
 from .config import ModelConfig
@@ -191,6 +200,30 @@ def _ssd_layer(cfg: ModelConfig, blk: SSDBlock, h, cache, i: int):
     return h + y
 
 
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+            torch.ops.aten.bmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """``remat_policy="dots"``: keep the output of a matmul without batch
+    dimensions (``mm``, ``addmm``, or a ``bmm`` of batch 1, which is how
+    ``einsum`` runs a projection); recompute the rest."""
+    if op in _MATMULS and (op != torch.ops.aten.bmm.default
+                           or args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg: ModelConfig, fn, *args):
+    """``fn(*args)``, recomputed in the backward (see the module
+    docstring)."""
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+    return checkpoint(fn, *args, use_reentrant=False, **kw)
+
+
 def forward_hidden(cfg: ModelConfig, model: Transformer, h: torch.Tensor, *,
                    positions: torch.Tensor,
                    cache: Optional[Dict[str, torch.Tensor]] = None,
@@ -202,16 +235,25 @@ def forward_hidden(cfg: ModelConfig, model: Transformer, h: torch.Tensor, *,
         sequence is longer than one token and cache_index == 0)
     The cache is updated in place and returned."""
     fam = cfg.family
+    remat = cfg.remat and cache is None and torch.is_grad_enabled()
     if fam in ("dense", "moe", "vlm", "audio"):
         for i, blk in enumerate(model.blocks):
-            kv = None if cache is None else (cache["k"][i], cache["v"][i])
-            h, _ = blk(h, positions, kv, cache_index)
+            if remat:
+                h = _remat(cfg, lambda x, b=blk: b(x, positions)[0], h)
+            else:
+                kv = None if cache is None else (cache["k"][i],
+                                                 cache["v"][i])
+                h, _ = blk(h, positions, kv, cache_index)
         return h, cache
 
     if fam in ("ssm", "hybrid"):
         every = cfg.shared_attn_every if fam == "hybrid" else 0
         for i, blk in enumerate(model.blocks):
-            h = _ssd_layer(cfg, blk, h, cache, i)
+            if remat:
+                h = _remat(cfg, functools.partial(_ssd_layer, cfg, blk,
+                                                  cache=None, i=i), h)
+            else:
+                h = _ssd_layer(cfg, blk, h, cache, i)
             if every and (i + 1) % every == 0:
                 h = _shared_attn(cfg, model, h, positions, (i + 1) // every - 1,
                                  cache, cache_index)

@@ -50,6 +50,11 @@ def test_import_leaves_jax_and_reference_out():
         "config", "layers", "moe", "ssd", "transformer", "convert")} \
         <= set(MODULES)
     assert {"repro_torch.configs", "repro_torch.configs.yi_6b"} <= set(MODULES)
+    assert {f"repro_torch.train.{m}" for m in (
+        "optimizer", "step", "data", "loop", "train_lm")} <= set(MODULES)
+    assert {"repro_torch.train", "repro_torch.serve",
+            "repro_torch.serve.engine", "repro_torch.serve.serve_lm"} \
+        <= set(MODULES)
 
 
 @pytest.mark.parametrize("path", [ROOT / "chip_smoke.py",
@@ -111,6 +116,30 @@ def test_ft_and_models_raise_without_cuda(no_cuda):
             make()
     assert ErasureCoder(device="cpu").device == torch.device("cpu")
     assert init_params(cfg, device="cpu").device == torch.device("cpu")
+
+
+def test_train_and_serve_raise_without_cuda(no_cuda):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.serve import ServeEngine, serve_lm
+    from repro_torch.train import (DataConfig, LoopConfig, OptimizerConfig,
+                                   SyntheticLM, init_opt, train, train_lm)
+    cfg = get_smoke_config("olmo-1b")
+    model = init_params(cfg, device="cpu")
+    for make in (lambda: train(cfg, DataConfig(batch=2, seq_len=8),
+                               OptimizerConfig(), LoopConfig(steps=1)),
+                 lambda: ServeEngine(cfg, model),
+                 lambda: SyntheticLM(DataConfig(), cfg),
+                 lambda: init_opt(OptimizerConfig(), model),
+                 lambda: train_lm.main([]), lambda: serve_lm.main([])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+    assert SyntheticLM(DataConfig(), cfg, device="cpu").perm.device.type \
+        == "cpu"
+    assert init_opt(OptimizerConfig(), model, device="cpu").step.device \
+        == torch.device("cpu")
+    assert ServeEngine(cfg, model, device="cpu").device == \
+        torch.device("cpu")
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):
