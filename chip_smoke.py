@@ -146,9 +146,31 @@ nonzero:
       kernel launches and ms (CUDA events), and peak memory above the
       phase's baseline.
 
+8. Sharding (``repro_torch.distributed``, ``repro_torch.launch``):
+
+   a. olmo-1b's train step at phase 7b's width, batch and microbatches
+      (fresh weights from ``--seed``, AdamW with fp32 moments), 3 steps
+      each: plain; with its bf16 parameters placed by
+      ``param_shardings(fsdp=True)`` on ``make_host_mesh()`` (1x1, NCCL
+      at world size 1) and ``grad_shardings``; and with
+      ``gather_weights_once`` as well.  The losses and grad norms must
+      equal the plain step's within rtol 1e-5 and every final parameter
+      within 1e-5 of its largest |value|; whether they are bitwise equal,
+      the median step ms of each run (host clock to a synchronize; the
+      gap to the plain step is DTensor's host dispatch) and the peak GiB
+      are recorded.
+   b. meanwhile, on the host, ``python -m repro_torch.launch.dryrun`` for
+      yi-6b x train_4k at 16x16 and at 2x16x16 (two processes at once;
+      meta tensors, a fake process group, no CUDA context): each cell must
+      be ``ok``, its argument bytes must equal their sum by arithmetic on
+      the specs, its counted FLOPs must be at least
+      ``model_flops_per_device``, every roofline term must be finite, and
+      it must not have opened a CUDA context.  Records memory, FLOPs,
+      collectives and the H100 roofline per cell.
+
 The lines before the last are the ``{"planning": [...]}``, ``{"fleet":
-[...]}``, ``{"ft": {...}}``, ``{"train": {...}}`` and ``{"kernels":
-[...]}`` records (the kernel's entry carries its fleet-path,
+[...]}``, ``{"ft": {...}}``, ``{"train": {...}}``, ``{"shard": {...}}``
+and ``{"kernels": [...]}`` records (the kernel's entry carries its fleet-path,
 checkpoint-path and train-path launches, times and shapes under
 ``"fleet"``, ``"ft"`` and ``"train"``); the last line is ``{"ok": true,
 "device": {...}}``.  Without CUDA it exits nonzero and prints no result.
@@ -162,6 +184,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import pathlib
 import random
 import statistics
@@ -234,6 +257,14 @@ TRAIN_LOOP = dict(steps=8, ckpt_every=4, n_micro=2, ec_n=8, ec_k=4, ec_d=6,
                   blocks_per_host=16)
 TRAIN_FAIL = {5: 3}                       # host 3 fails after step 5
 TRAIN_RTOL = 1e-5                         # replayed losses, the reference's
+# phase 8: sharding.  8a: olmo-1b's train step on a 1x1 mesh (phase 7b's
+# model, batch and microbatches); 8b: the dry run of yi-6b x train_4k at
+# 16x16 and 2x16x16 on the host (the other cells, kimi-k2's among them, by
+# hand: ``python -m repro_torch.launch.dryrun --all``, PERF.md)
+SHARD_STEPS = 3
+SHARD_RTOL = 1e-5                         # phase 7b's replay gate
+DRYRUN_CELLS = [("yi-6b", "train_4k", False), ("yi-6b", "train_4k", True)]
+DRYRUN_TIMEOUT = 600
 
 
 def log(*parts) -> None:
@@ -1552,6 +1583,186 @@ def train_phase(seed: int) -> tuple:
     return rec, train_kernel
 
 
+def start_dryruns(root: pathlib.Path, out_dir: pathlib.Path) -> list:
+    """Phase 8b's cells, one host process each (``python -m
+    repro_torch.launch.dryrun``), started at once: (cell, process, out)."""
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    runs = []
+    for arch, shape, multi_pod in DRYRUN_CELLS:
+        out = out_dir / f"{arch}_{shape}_{int(multi_pod)}.json"
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--out", str(out)]
+        if multi_pod:
+            cmd.append("--multi-pod")
+        runs.append(((arch, shape, multi_pod), subprocess.Popen(
+            cmd, env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+            text=True), out))
+    return runs
+
+
+def finish_dryruns(runs: list) -> list:
+    """Wait for phase 8b's processes (killing any past the deadline) and
+    check each cell: ``ok``, argument bytes equal to their sum by spec
+    arithmetic, counted FLOPs at least the model's, finite roofline terms,
+    no CUDA context."""
+    deadline = time.perf_counter() + DRYRUN_TIMEOUT
+    recs = []
+    try:
+        for cell, proc, out in runs:
+            try:
+                _, err = proc.communicate(
+                    timeout=max(1.0, deadline - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"dry run {cell} exceeded "
+                                     f"{DRYRUN_TIMEOUT} s") from None
+            if not out.exists():
+                raise AssertionError(f"dry run {cell} wrote nothing: "
+                                     f"{err[-2000:]}")
+            rec = json.loads(out.read_text())
+            if not rec["ok"]:
+                raise AssertionError(f"dry run {cell} failed: "
+                                     f"{rec['error'][-2000:]}")
+            mem = rec["memory"]
+            terms = [v for v in rec["roofline"].values()
+                     if isinstance(v, float)]
+            if mem["argument_bytes"] != mem["analytic_argument_bytes"]:
+                raise AssertionError(f"dry run {cell}: argument bytes "
+                                     f"{mem['argument_bytes']} != "
+                                     f"{mem['analytic_argument_bytes']}")
+            if not rec["useful_fraction"] <= 1.0:
+                raise AssertionError(f"dry run {cell}: counted FLOPs "
+                                     f"{rec['flops_per_device']} below the "
+                                     f"model's {rec['model_flops_per_device']}")
+            if not all(math.isfinite(v) for v in terms) or \
+                    rec["cuda_initialized"]:
+                raise AssertionError(f"dry run {cell}: roofline {terms}, "
+                                     f"CUDA {rec['cuda_initialized']}")
+            recs.append(rec)
+            r = rec["roofline"]
+            log(f"  dry run {rec['arch']} x {rec['shape']} at {rec['mesh']}: "
+                f"{rec['seconds']:.1f} s; arguments "
+                f"{mem['argument_bytes'] / 2**30:.2f} GiB (= the specs' "
+                f"sum), peak {mem['peak_bytes_per_device'] / 2**30:.2f} GiB "
+                f"a device ({mem['peak_fraction_of_hbm']:.2f} of 80 GB); "
+                f"{rec['flops_per_device']:.4e} FLOP a device, useful "
+                f"{rec['useful_fraction']:.3f}; collectives "
+                f"{rec['collective_counts']}; roofline compute "
+                f"{r['t_compute']:.3f} s, memory {r['t_memory']:.3f} s, "
+                f"links {r['t_collective']:.3f} s ({r['dominant']})")
+    finally:
+        for _, proc, _ in runs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return recs
+
+
+def shard_phase(seed: int, root: pathlib.Path) -> dict:
+    """Phase 8 (see the module docstring): olmo-1b's train step sharded on
+    a 1x1 mesh against the plain step, and the dry run's cells on the
+    host."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import (distribute_batch, distribute_model,
+                                         param_shardings, set_mesh)
+    from repro_torch.launch.mesh import make_host_mesh, teardown
+    from repro_torch.models import init_params
+    from repro_torch.train import (DataConfig, OptimizerConfig, SyntheticLM,
+                                   init_opt, make_train_step)
+
+    out_dir = pathlib.Path(tempfile.mkdtemp(prefix="dryrun_"))
+    runs = start_dryruns(root, out_dir)     # host only: they overlap 8a
+    try:
+        cfg = get_config(TRAIN_ARCH)
+        dev = torch.device(DEVICE, torch.cuda.current_device())
+        data = SyntheticLM(DataConfig(seed=seed, **TRAIN_DATA), cfg,
+                           device=dev)
+        batches = [data.batch_at(i) for i in range(SHARD_STEPS)]
+        ocfg = OptimizerConfig()
+        n_micro = TRAIN_LOOP["n_micro"]
+
+        def run(kind):
+            fresh_peak()
+            model = init_params(cfg, seed, device=dev)
+            mesh = None if kind == "plain" else make_host_mesh(dev)
+            try:
+                sh = None
+                if mesh is not None:
+                    sh = param_shardings(mesh, model, fsdp=True)
+                    distribute_model(model, mesh, sh)
+                step = make_train_step(cfg, ocfg, n_micro=n_micro,
+                                       grad_shardings=sh,
+                                       gather_weights_once=kind == "gather")
+                opt = init_opt(ocfg, model, device=dev)
+                metrics, ms = [], []
+                with (set_mesh(mesh) if mesh is not None
+                      else contextlib.nullcontext()):
+                    for b in batches:
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        if mesh is not None:
+                            b = distribute_batch(b, mesh)
+                        model, opt, m = step(model, opt, b)
+                        torch.cuda.synchronize()
+                        ms.append((time.perf_counter() - t0) * 1e3)
+                        metrics.append((float(m["loss"]),
+                                        float(m["grad_norm"])))
+                final = {n: (p.full_tensor() if mesh is not None else p)
+                         .detach().clone()
+                         for n, p in model.named_parameters()}
+                peak = torch.cuda.max_memory_allocated() / 2**30
+                del model, opt, step
+                return metrics, final, ms, peak
+            finally:
+                if mesh is not None:
+                    teardown()
+
+        log(f"  sharded step: {cfg.name} at full width, batch "
+            f"{TRAIN_DATA['batch']} x {TRAIN_DATA['seq_len']} in {n_micro} "
+            f"microbatches, {SHARD_STEPS} steps, 1x1 mesh over NCCL")
+        plain, plain_final, plain_ms, plain_peak = run("plain")
+        rec = dict(arch=cfg.name, source="src/repro/configs/olmo_1b.py:6-10",
+                   steps=SHARD_STEPS, data=TRAIN_DATA, n_micro=n_micro,
+                   plain_step_ms=spread([x / 1e3 for x in plain_ms]),
+                   plain_peak_gib=plain_peak, plain_metrics=plain)
+        for kind in ("shard", "gather"):
+            got, final, ms, peak = run(kind)
+            ok = all(abs(a - b) <= SHARD_RTOL * abs(b)
+                     for g, w in zip(got, plain) for a, b in zip(g, w))
+            worst = max(
+                float((final[n].float() - w.float()).abs().max())
+                / max(float(w.float().abs().max()), 1e-30)
+                for n, w in plain_final.items())
+            if not ok or worst > SHARD_RTOL:
+                raise AssertionError(f"{kind}: metrics {got} against "
+                                     f"{plain}, parameters {worst:.3e} of "
+                                     f"their scale")
+            bitwise = got == plain and all(
+                torch.equal(final[n], w) for n, w in plain_final.items())
+            rec[kind] = dict(step_ms=spread([x / 1e3 for x in ms]),
+                             peak_gib=peak, metrics=got, bitwise=bitwise,
+                             param_err_of_scale=worst)
+            del final
+            log(f"  {kind}: losses and grad norms within rtol "
+                f"{SHARD_RTOL} of the plain step "
+                f"({'bitwise equal' if bitwise else 'not bitwise'}), "
+                f"parameters within {worst:.2e} of their scale; step median "
+                f"{rec[kind]['step_ms']['median']:.1f} ms against plain "
+                f"{rec['plain_step_ms']['median']:.1f} ms (DTensor's host "
+                f"dispatch: {rec[kind]['step_ms']['median'] - rec['plain_step_ms']['median']:+.1f} ms); "
+                f"peak {peak:.2f} GiB against {plain_peak:.2f}")
+        del plain_final
+        torch.cuda.empty_cache()
+        rec["dryrun"] = finish_dryruns(runs)
+    finally:
+        for _, proc, _ in runs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1861,6 +2072,14 @@ def main(argv=None) -> int:
     results["train"] = dict(serve=serve_rec, train=train_rec)
     results["train_s"] = time.perf_counter() - t0
     log(f"serving and training: {results['train_s']:.1f} s")
+
+    # -- 8. sharding: the sharded train step, the dry run ------------------
+    log(f"sharding ({TRAIN_ARCH}'s step on a 1x1 mesh on the card; the dry "
+        f"run on the host):")
+    t0 = time.perf_counter()
+    results["shard"] = shard_phase(args.seed, root)
+    results["shard_s"] = time.perf_counter() - t0
+    log(f"sharding: {results['shard_s']:.1f} s")
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(results, indent=1))
@@ -1868,6 +2087,7 @@ def main(argv=None) -> int:
     log(json.dumps({"fleet": results["fleet"]}))
     log(json.dumps({"ft": results["ft"]}))
     log(json.dumps({"train": results["train"]}))
+    log(json.dumps({"shard": results["shard"]}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -182,7 +182,8 @@ def plan(net: OverlayNetwork, params: CodeParams, scheme: str,
 
     ``engine="auto"`` (default) and ``"scalar"`` run the scalar planner;
     ``"batched"`` plans a batch of one on ``device`` and materializes its
-    plan.  ``profile`` notes the call and times it; extra keyword arguments
+    plan.  ``profile`` notes the call and times it (fr and ftr on the
+    batched engine also time their stages); extra keyword arguments
     (``beta_max=`` for shah, ``region=`` for fr/ftr) reach the planner.
     """
     _check_engine(engine)
@@ -192,10 +193,10 @@ def plan(net: OverlayNetwork, params: CodeParams, scheme: str,
     if profile is not None:
         profile.note(scheme=spec.name, batch=1, engine=resolved)
     if resolved == "batched":
-        with _total(profile, None):     # the host copy waits for the device
-            res = plan_many([net], params, scheme, engine="batched",
-                            witness=witness, device=device, **kwargs)
-            return plans_from_batch(res, params)[0]
+        res = plan_many([net], params, scheme, engine="batched",
+                        witness=witness, profile=profile, device=device,
+                        **kwargs)
+        return plans_from_batch(res, params)[0]
     with _total(profile, None):
         return spec.scalar(net, params,
                            **_planner_kwargs(spec, witness, kwargs))
@@ -326,11 +327,11 @@ def _batch_from_plans(spec: SchemeSpec, plans: List[RepairPlan],
 register_scheme("star", plan_star,                        # uniform-beta star [3]
                 batched=torch_engine.plan_star_batch)
 register_scheme("fr", plan_fr, batched=torch_engine.plan_fr_batch,
-                accepts_witness=True)                     # Section III
+                accepts_witness=True, accepts_profile=True)   # Section III
 register_scheme("tr", plan_tr,                            # Algorithm 1
                 batched=torch_engine.plan_tr_batch)
 register_scheme("ftr", plan_ftr, batched=torch_engine.plan_ftr_batch,
-                accepts_witness=True)                     # Algorithm 2
+                accepts_witness=True, accepts_profile=True)   # Algorithm 2
 register_scheme("shah", plan_shah,                        # Shah et al. [6]
                 batched=torch_engine.plan_shah_batch)
 register_scheme("rctree", plan_rctree)                    # RCTREE [7]

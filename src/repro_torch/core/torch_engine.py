@@ -23,7 +23,12 @@ launches and device-to-host reads, not arithmetic.  The design follows:
 * loops whose length depends on the data (hi-doubling, the local search's
   probe waves) read one flag from the device per pass, and refinements run
   on the lanes that need them only;
-* ``syncs`` counts the engine's own device-to-host reads.
+* ``syncs`` counts the engine's own device-to-host reads;
+* ``profile=`` (fr and ftr) times the reference's stages (``closed_form``,
+  ``star_bisection``, ``witness``; ``tr_seed``, ``candidates``,
+  ``local_search``, ``final_solve``, ``witness``) and counts its work
+  items; each stage ends in a synchronize on the card.  Only a profiled
+  plan reads the device for them (not counted in ``syncs``).
 
 Float64 is named on every float tensor (torch defaults to float32), and
 parents are int64.  The reductions (the cumsum of the region check, the
@@ -33,7 +38,8 @@ tree parents are equal save where two trees tie.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+import contextlib
+from typing import Callable, Iterator, Optional, Tuple
 
 import torch
 
@@ -68,6 +74,29 @@ def _lanes(mask: torch.Tensor) -> torch.Tensor:
     global syncs
     syncs += 1
     return torch.nonzero(mask).squeeze(1)
+
+
+@contextlib.contextmanager
+def _stage(profile, name: str, device: torch.device) -> Iterator[None]:
+    """The ``profile=`` hook's stage ``name`` (the reference's ``_pstage``):
+    nothing without a profile; with one, the stage ends when the device's
+    work is done.  Stages only measure, never branch, so a profiled plan is
+    the same plan."""
+    if profile is None:
+        yield
+        return
+    with profile.stage(name):
+        yield
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+
+def _count(profile, **counts) -> None:
+    """The profile's counters; a tensor count is read from the device (a
+    read of the profile's, not counted in ``syncs``)."""
+    if profile is not None:
+        for name, n in counts.items():
+            profile.count(name, int(n))
 
 
 def _region_for(params: CodeParams,
@@ -333,10 +362,11 @@ def _fr_closed_form(direct: torch.Tensor, closed: torch.Tensor, k: int,
 def plan_fr_batch(caps: torch.Tensor, params: CodeParams,
                   region: Optional[FeasibleRegion] = None,
                   minimize_traffic: bool = True,
-                  witness: str = "exact") -> BatchPlanResult:
+                  witness: str = "exact", profile=None) -> BatchPlanResult:
     """Flexible Regeneration over a batch: the MSR closed form on lanes with
     every direct link positive, otherwise the star bisection and the
-    level-cut witness."""
+    level-cut witness.  ``profile`` times the ``closed_form`` /
+    ``star_bisection`` / ``witness`` stages."""
     _check_witness(witness)
     region = _region_for(params, region)
     B = caps.shape[0]
@@ -349,18 +379,25 @@ def plan_fr_batch(caps: torch.Tensor, params: CodeParams,
     closed = torch.zeros(B, dtype=torch.bool, device=dev)
     if params.is_msr:
         closed = (direct > 0).all(dim=1)
-        cb, ct = _fr_closed_form(direct, closed, params.k, params.M)
-        betas = torch.where(closed[:, None], cb, betas)
-        lb = torch.where(closed, ct, lb)
+        staged = profile is not None and bool(closed.any())
+        with _stage(profile if staged else None, "closed_form", dev):
+            cb, ct = _fr_closed_form(direct, closed, params.k, params.M)
+            betas = torch.where(closed[:, None], cb, betas)
+            lb = torch.where(closed, ct, lb)
     rest = ~closed
     if _read(rest.any())[0]:
-        t_rest = _star_optimal_time(direct, x, params.alpha, rest)
+        with _stage(profile, "star_bisection", dev):
+            t_rest = _star_optimal_time(direct, x, params.alpha, rest)
+        _count(profile, bisection_iters=BISECT_ITERS)
         lb = torch.where(rest, t_rest, lb)
         live = rest & torch.isfinite(t_rest)
-        ub = (torch.where(live, t_rest, 0.0)[:, None] * direct).clamp_max(
-            params.alpha)
-        wb = _level_cut(ub, x) if minimize_traffic else ub
-        betas = torch.where(live[:, None], wb, betas)
+        with _stage(profile, "witness", dev):
+            ub = (torch.where(live, t_rest, 0.0)[:, None] * direct
+                  ).clamp_max(params.alpha)
+            wb = _level_cut(ub, x) if minimize_traffic else ub
+            betas = torch.where(live[:, None], wb, betas)
+    _count(profile, lanes=B, closed_form_lanes=closed.sum(),
+           bisection_lanes=rest.sum())
     flows = betas.clamp_max(params.alpha)
     times = _star_time(flows, direct).clamp_min(0.0)
     bad = ~torch.isfinite(lb)
@@ -692,11 +729,13 @@ def _local_search(caps: torch.Tensor, parents: torch.Tensor,
 def plan_ftr_batch(caps: torch.Tensor, params: CodeParams,
                    region: Optional[FeasibleRegion] = None,
                    local_search: bool = True,
-                   witness: str = "exact") -> BatchPlanResult:
+                   witness: str = "exact", profile=None) -> BatchPlanResult:
     """Algorithm 2 over a batch: the candidate trees (cores of every size
     and the TR tree) with incumbent pruning, the pivot local search from
     the three best, the final 50-step solve on the winner and the level-cut
-    witness for its traffic-minimal betas."""
+    witness for its traffic-minimal betas.  ``profile`` times the
+    ``tr_seed`` / ``candidates`` / ``local_search`` / ``final_solve`` /
+    ``witness`` stages."""
     _check_witness(witness)
     region = _region_for(params, region)
     B, D1, _ = caps.shape
@@ -704,30 +743,39 @@ def plan_ftr_batch(caps: torch.Tensor, params: CodeParams,
     alpha = params.alpha
     x = torch.tensor(region.x, dtype=F64, device=dev)
     bidx = torch.arange(B, device=dev)
-    tr_parent, _, _ = _tr_greedy(caps, params.beta, alpha)
-    cands = _ftr_candidates(caps, tr_parent)
-    t_cand = _candidate_times(caps, cands, x, alpha)
+    with _stage(profile, "tr_seed", dev):
+        tr_parent, _, _ = _tr_greedy(caps, params.beta, alpha)
+    with _stage(profile, "candidates", dev):
+        cands = _ftr_candidates(caps, tr_parent)
+        t_cand = _candidate_times(caps, cands, x, alpha)
     order = torch.argsort(t_cand, dim=1, stable=True)
     best_t = t_cand.gather(1, order[:, :1])[:, 0]
     best_par = cands[bidx, order[:, 0]]
     if local_search:
-        top = order[:, :3]
-        par_ls = cands[bidx[:, None], top].reshape(B * 3, D1)
-        t_ls = t_cand.gather(1, top).reshape(B * 3)
-        par_ls, t_ls = _local_search(caps.repeat_interleave(3, dim=0), par_ls,
-                                     t_ls, x, alpha, torch.isfinite(t_ls))
-        par_ls = par_ls.view(B, 3, D1)
-        t_ls = t_ls.view(B, 3)
-        for s in range(3):                  # winner update order: s = 0, 1, 2
-            upd = t_ls[:, s] < best_t
-            best_t = torch.where(upd, t_ls[:, s], best_t)
-            best_par = torch.where(upd[:, None], par_ls[:, s], best_par)
-    inc, ec, ch = _tree_arrays(caps, best_par)
-    solvable = torch.isfinite(best_t)
-    t_star = _tree_optimal_time(inc, ec, ch, x, alpha, FINAL_ITERS, solvable)
-    _, wf = _tree_feasible(torch.where(solvable, t_star, 1.0), inc, ec, x,
-                           alpha, ch)
-    betas = torch.where(solvable[:, None], _level_cut(wf, x), 0.0)
+        with _stage(profile, "local_search", dev):
+            top = order[:, :3]
+            par_ls = cands[bidx[:, None], top].reshape(B * 3, D1)
+            t_ls = t_cand.gather(1, top).reshape(B * 3)
+            par_ls, t_ls = _local_search(caps.repeat_interleave(3, dim=0),
+                                         par_ls, t_ls, x, alpha,
+                                         torch.isfinite(t_ls))
+            par_ls = par_ls.view(B, 3, D1)
+            t_ls = t_ls.view(B, 3)
+            for s in range(3):              # winner update order: s = 0, 1, 2
+                upd = t_ls[:, s] < best_t
+                best_t = torch.where(upd, t_ls[:, s], best_t)
+                best_par = torch.where(upd[:, None], par_ls[:, s], best_par)
+    with _stage(profile, "final_solve", dev):
+        inc, ec, ch = _tree_arrays(caps, best_par)
+        solvable = torch.isfinite(best_t)
+        t_star = _tree_optimal_time(inc, ec, ch, x, alpha, FINAL_ITERS,
+                                    solvable)
+        _, wf = _tree_feasible(torch.where(solvable, t_star, 1.0), inc, ec,
+                               x, alpha, ch)
+    with _stage(profile, "witness", dev):
+        betas = torch.where(solvable[:, None], _level_cut(wf, x), 0.0)
+    _count(profile, lanes=B, candidate_trees=cands.shape[1],
+           final_solve_iters=FINAL_ITERS)
     flows = torch.einsum("bud,bd->bu", inc, betas).clamp_max(alpha)
     et = torch.where(ec > 0, flows / ec, INF)
     return BatchPlanResult(

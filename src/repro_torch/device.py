@@ -15,16 +15,19 @@ import torch
 DeviceLike = Union[None, str, torch.device]
 
 
-def resolve_device(device: DeviceLike = None) -> torch.device:
+def resolve_device(device: DeviceLike = None, *,
+                   allow_meta: bool = False) -> torch.device:
     """The device an entry point runs on.
 
     ``None`` means the current CUDA device; a CUDA device is returned as
     given.  Either raises ``RuntimeError`` when CUDA is not available.
-    ``"cpu"`` is returned only when named; any other device type raises
-    ``ValueError``.
+    ``"cpu"`` is returned only when named.  ``"meta"`` (abstract tensors,
+    no data) is returned only with ``allow_meta=True``, which the dry run's
+    abstract inputs pass (``launch.specs``, ``launch.dryrun``); any other
+    device type raises ``ValueError``.
     """
     dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cpu":
+    if dev.type == "cpu" or (dev.type == "meta" and allow_meta):
         return dev
     if dev.type != "cuda":
         raise ValueError(f"repro_torch runs on cuda or cpu, not {dev}")

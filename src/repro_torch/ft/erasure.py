@@ -28,6 +28,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..coding import GF8, RLNC, CodedBlocks
 from ..coding.rlnc import Matmul
@@ -108,6 +109,10 @@ class TreeSpec:
 
 
 def _as_tensor(leaf: Any) -> torch.Tensor:
+    if isinstance(leaf, DTensor):
+        raise TypeError("a checkpoint takes plain tensors; this state holds "
+                        "a DTensor (a sharded state is not checkpointed: "
+                        "gather it with full_tensor() first)")
     if isinstance(leaf, torch.Tensor):
         return leaf.detach()
     return torch.from_numpy(np.array(leaf))

@@ -3,9 +3,10 @@
 A copy of ``repro.models.config`` (dimensions only), so ``param_count()``
 and every field compare equal with the reference's.  ``remat`` and
 ``remat_policy`` choose what a training forward recomputes in the backward
-(``models.transformer``).  ``seq_parallel`` and the sharding motive of
-``repeat_kv`` act on sharding, which the port does not do yet: they have no
-effect here (``repeat_kv`` gives the same numbers as the GQA grouping).
+(``models.transformer``).  ``seq_parallel`` acts on a mesh only (the
+residual stream's layout, ``distributed.hints``); ``repeat_kv`` gives the
+same numbers as the GQA grouping, with the heads sharded evenly on a
+mesh.
 """
 from __future__ import annotations
 

@@ -17,19 +17,32 @@ Softmax and logsumexp math is fp32, matmul inputs are ``compute_dtype``.
 Where the reference asks XLA for an fp32 product of ``compute_dtype``
 inputs (``preferred_element_type``), the port upcasts the inputs and
 multiplies in fp32: a product of two bf16 values is exact in fp32, so this
-is the same arithmetic.  The reference's sharding hints are no-ops without
-a mesh and are left out.
+is the same arithmetic.
+
+The reference's sharding hints stand at its points (``distributed.hints``):
+without an ambient mesh they return their input, so a plain run is what it
+was.  With DTensor inputs every op here runs through DTensor's sharding
+propagation, but for the chunked attention, which runs on each device's
+(batch, kv-head) shards (``batch_local``: its einsums over the flattened
+batch and heads have no DTensor rule once both are sharded); the tensors a
+layer makes for itself (rope tables, masks, the loss's sums) join the
+input's mesh as ``Replicate()``, and the online softmax's running max, sum
+and accumulator are made ``*_like`` a tile.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from ..device import DeviceLike
+from ..distributed.hints import (BATCH, batch_local, gathered, hint,
+                                 replicate_like)
 from .config import ModelConfig
 
 _MASK = -1e30
@@ -105,8 +118,8 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     freq = 1.0 / (theta ** (torch.arange(0, d, 2, dtype=torch.float32,
                                          device=x.device) / d))
     ang = positions.float()[..., None] * freq          # (..., S, D/2)
-    cos = torch.cos(ang)[..., None, :]                 # (..., S, 1, D/2)
-    sin = torch.sin(ang)[..., None, :]
+    cos = replicate_like(x, torch.cos(ang)[..., None, :])  # (..., S, 1, D/2)
+    sin = replicate_like(x, torch.sin(ang)[..., None, :])
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
@@ -136,8 +149,9 @@ class MLP(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c = dt(self.cfg)
         xc = x.to(c)
-        g = xc @ self.w_gate.to(c)
-        u = xc @ self.w_up.to(c)
+        nb = (None,) * (x.dim() - 2)
+        g = hint(xc @ self.w_gate.to(c), BATCH, *nb, "model")
+        u = hint(xc @ self.w_up.to(c), BATCH, *nb, "model")
         h = F.silu(g.float()).to(c) * u
         return h @ self.w_down.to(c)
 
@@ -155,6 +169,14 @@ def _divisor_chunk(want: int, n: int) -> int:
     return c
 
 
+def _heads_divide(q: DTensor, k: DTensor) -> bool:
+    """Whether the query and KV heads both split evenly over "model" (then
+    each device's query heads read its own KV heads)."""
+    m = dict(zip(q.device_mesh.mesh_dim_names, q.device_mesh.shape))
+    n = m.get("model", 1)
+    return q.shape[2] % n == 0 and k.shape[2] % n == 0
+
+
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool, q_positions: torch.Tensor,
                       kv_positions: torch.Tensor, q_chunk: int,
@@ -169,6 +191,12 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     and the accumulator are fp32, the probabilities are cast to v's dtype
     for the value product, as in the reference.
     """
+    if isinstance(q, DTensor):      # local to (batch, kv-head) shards
+        heads = "model" if _heads_divide(q, k) else None
+        return batch_local(functools.partial(
+            chunked_attention, causal=causal, q_positions=q_positions,
+            kv_positions=kv_positions, q_chunk=q_chunk, kv_chunk=kv_chunk),
+            q, k, v, spec=(BATCH, None, heads, None))
     B, Sq, H, D = q.shape
     _, Skv, KV, _ = k.shape
     G = H // KV
@@ -177,26 +205,29 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     nq, nk = Sq // qc, Skv // kc
     scale = 1.0 / math.sqrt(D)
 
-    qr = q.reshape(B, nq, qc, KV, G, D).permute(1, 0, 3, 4, 2, 5)
-    kr = k.reshape(B, nk, kc, KV, D).permute(1, 0, 3, 2, 4)   # (nk,B,KV,kc,D)
-    vr = v.reshape(B, nk, kc, KV, D).permute(1, 0, 3, 2, 4)
+    # (nq, B, KV, G, qc, D): the kv-head dimension on "model", so the score
+    # and output tiles compute with sharded heads
+    qr = hint(q.reshape(B, nq, qc, KV, G, D).permute(1, 0, 3, 4, 2, 5),
+              None, BATCH, "model", None, None, None)
+    kr = hint(k.reshape(B, nk, kc, KV, D).permute(1, 0, 3, 2, 4),
+              None, BATCH, "model", None, None)       # (nk, B, KV, kc, D)
+    vr = hint(v.reshape(B, nk, kc, KV, D).permute(1, 0, 3, 2, 4),
+              None, BATCH, "model", None, None)
     qp = q_positions.reshape(nq, qc)
     kp = kv_positions.reshape(nk, kc)
 
     outs = []
     for i in range(nq):
         qt = qr[i].float()                      # (B, KV, G, qc, D)
-        m = torch.full((B, KV, G, qc), _MASK, dtype=torch.float32,
-                       device=q.device)
-        l = torch.zeros((B, KV, G, qc), dtype=torch.float32, device=q.device)
-        o = torch.zeros((B, KV, G, qc, D), dtype=torch.float32,
-                        device=q.device)
+        o = torch.zeros_like(qt)
+        m = torch.full_like(qt[..., 0], _MASK)  # (B, KV, G, qc)
+        l = torch.zeros_like(m)
         for j in range(nk):
             kt, vt = kr[j], vr[j]               # (B, KV, kc, D)
             s = torch.einsum("bhgqd,bhkd->bhgqk", qt, kt.float()) * scale
             if causal:
                 ok = qp[i][:, None] >= kp[j][None, :]
-                s = s.masked_fill(~ok, _MASK)
+                s = s.masked_fill(replicate_like(s, ~ok), _MASK)
             m_new = torch.maximum(m, s.amax(dim=-1))
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
@@ -205,13 +236,28 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 "bhgqk,bhkd->bhgqd", p.to(vt.dtype).float(), vt.float())
             m = m_new
         outs.append((o / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype))
-    out = torch.stack(outs)                     # (nq, B, KV, G, qc, D)
+    out = hint(torch.stack(outs), None, BATCH, "model", None, None, None)
     return out.permute(1, 0, 4, 2, 3, 5).reshape(B, Sq, H, D)
 
 
 # ---------------------------------------------------------------------------
 # GQA attention block (with optional KV cache)
 # ---------------------------------------------------------------------------
+
+def _project_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (B, S, d) times w (d, heads, hd): (B, S, heads, hd).  On a mesh
+    whose "model" the heads do not divide (the rules leave w's heads
+    whole), each device computes every head of its rows: DTensor would
+    split the product's (heads x hd) columns inside a head, which cannot
+    be unflattened."""
+    if isinstance(x, DTensor):
+        n = dict(zip(x.device_mesh.mesh_dim_names, x.device_mesh.shape))
+        if w.shape[1] % n.get("model", 1):
+            wl = gathered(w)
+            return batch_local(
+                lambda xl: torch.einsum("bsd,dhk->bshk", xl, wl), x)
+    return torch.einsum("bsd,dhk->bshk", x, w)
+
 
 class Attention(nn.Module):
     def __init__(self, cfg: ModelConfig, device: DeviceLike = None):
@@ -244,13 +290,16 @@ class Attention(nn.Module):
         """Projected and rotated q (B, S, H, hd), k and v (B, S, KV, hd)."""
         c = dt(self.cfg)
         xc = x.to(c)
-        q = torch.einsum("bsd,dhk->bshk", xc, self.wq.to(c))
-        k = torch.einsum("bsd,dhk->bshk", xc, self.wk.to(c))
-        v = torch.einsum("bsd,dhk->bshk", xc, self.wv.to(c))
+        q = _project_heads(xc, self.wq.to(c))
+        k = _project_heads(xc, self.wk.to(c))
+        v = _project_heads(xc, self.wv.to(c))
         if self.cfg.qkv_bias:
             q = q + self.bq.to(c)
             k = k + self.bk.to(c)
             v = v + self.bv.to(c)
+        q = hint(q, BATCH, None, "model", None)
+        k = hint(k, BATCH, None, "model", None)
+        v = hint(v, BATCH, None, "model", None)
         q = rope(q, positions, self.cfg.rope_theta)
         k = rope(k, positions, self.cfg.rope_theta)
         return q, k, v
@@ -269,8 +318,8 @@ class Attention(nn.Module):
         q, k, v = self.qkv(x, positions)
         if cfg.repeat_kv and cache is None and cfg.num_kv_heads < cfg.num_heads:
             G = cfg.num_heads // cfg.num_kv_heads
-            k = k.repeat_interleave(G, dim=2)
-            v = v.repeat_interleave(G, dim=2)
+            k = hint(k.repeat_interleave(G, dim=2), BATCH, None, "model", None)
+            v = hint(v.repeat_interleave(G, dim=2), BATCH, None, "model", None)
 
         new_cache = None
         if cache is not None:
@@ -281,7 +330,7 @@ class Attention(nn.Module):
             vc[:, at:at + S] = v.to(vc.dtype)
             new_cache = (kc, vc)
             kv_pos = torch.arange(kc.shape[1], dtype=torch.int32,
-                                  device=x.device)
+                                  device=positions.device)
             out = chunked_attention(q, kc, vc, causal=True,
                                     q_positions=positions,
                                     kv_positions=kv_pos,
@@ -318,10 +367,73 @@ class Embed(nn.Module):
             w.normal_(0.0, 1.0 / math.sqrt(self.cfg.d_model), generator=gen)
 
     def tokens(self, tokens: torch.Tensor) -> torch.Tensor:
+        if isinstance(self.tok, DTensor):
+            return _vocab_parallel(
+                lambda table, ids: table[ids], self.tok, tokens, 0,
+                tuple(tokens.shape) + (self.tok.shape[1],)).to(dt(self.cfg))
         return self.tok[tokens].to(dt(self.cfg))
 
     def table(self) -> torch.Tensor:
         return self.unembed if hasattr(self, "unembed") else self.tok
+
+
+def _vocab_dim(x: DTensor, dim: int) -> Optional[int]:
+    """The mesh dimension (of size > 1) that shards ``x``'s vocabulary
+    dimension ``dim``, if any; ``x`` is sharded there at most once and
+    nowhere else."""
+    mesh = x.device_mesh
+    dims = [md for md, pl in enumerate(x.placements)
+            if pl.is_shard(dim) and mesh.size(md) > 1]
+    if len(dims) > 1:
+        raise NotImplementedError(f"vocabulary placements {x.placements}")
+    return dims[0] if dims else None
+
+
+def _vocab_parallel(fn, table: DTensor, ids: torch.Tensor, dim: int,
+                    shape) -> DTensor:
+    """``fn(local table, local ids)`` where ``table``'s vocabulary
+    dimension ``dim`` may be sharded over one mesh dimension: each device
+    reads the ids its shard holds (zeros for the others), and the devices'
+    results are summed over that mesh dimension.  The other placements are
+    the ids' for a lookup (``dim`` 0) and the table's for a gather, whose
+    leading dimensions are the ids'.  The table's local gradient is a
+    partial sum over the mesh dimensions that split the ids but not the
+    table (each data shard's rows add to it).  (DTensor's own rules for a
+    lookup or a gather on a sharded vocabulary fail in their backward in
+    the torch versions at hand: an index_put strategy on 2.11, a
+    partial-to-masked-partial redistribution on 2.11 and 2.13.)"""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = table.device_mesh
+    vd = _vocab_dim(table, dim)
+    if not isinstance(ids, DTensor):
+        ids = replicate_like(table, ids)
+    keep = [Replicate() if md == vd else pl for md, pl in
+            enumerate(ids.placements if dim == 0 else table.placements)]
+    local_ids = ids.redistribute(mesh, keep).to_local()
+    local = table.to_local(grad_placements=[
+        Partial() if keep[md].is_shard() and not pl.is_shard() else pl
+        for md, pl in enumerate(table.placements)])
+    if vd is None:
+        out, placements, shape = fn(local, local_ids), keep, tuple(shape)
+    else:
+        lo = mesh.get_local_rank(vd) * local.shape[dim]
+        held = (local_ids >= lo) & (local_ids < lo + local.shape[dim])
+        out = fn(local, torch.where(held, local_ids - lo, 0))
+        out = torch.where(held.reshape(held.shape + (1,) * (out.dim()
+                                                            - held.dim())),
+                          out, torch.zeros_like(out))[None]
+        # the shards' results stacked along a new leading dimension, which
+        # a sum then reduces
+        placements = [Shard(0) if md == vd else
+                      Shard(pl.dim + 1) if pl.is_shard() else pl
+                      for md, pl in enumerate(keep)]
+        shape = (mesh.size(vd),) + tuple(shape)
+    shape = torch.Size(shape)
+    out = DTensor.from_local(out, mesh, placements, run_check=False,
+                             shape=shape,
+                             stride=torch.empty(shape, device="meta")
+                             .stride())
+    return out if vd is None else out.sum(0)
 
 
 def logits_last(cfg: ModelConfig, embed: Embed, h: torch.Tensor
@@ -341,16 +453,22 @@ def chunked_softmax_xent(cfg: ModelConfig, embed: Embed, h: torch.Tensor,
     cs = _divisor_chunk(cfg.loss_chunk, S)
     if mask is None:
         mask = labels >= 0
-    tot = torch.zeros((), dtype=torch.float32, device=h.device)
-    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    tot = replicate_like(h, torch.zeros((), dtype=torch.float32,
+                                        device=labels.device))
+    cnt = torch.zeros_like(tot)
     for s0 in range(0, S, cs):
         hc = h[:, s0:s0 + cs].to(dt(cfg)).float()
         lc = labels[:, s0:s0 + cs]
         mc = mask[:, s0:s0 + cs].float()
-        logits = hc @ W.t()
+        logits = hint(hc @ W.t(), BATCH, None, "model")
         lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1,
-                            torch.clamp(lc, min=0).long()[..., None])[..., 0]
+        idx = torch.clamp(lc, min=0).long()
+        if isinstance(logits, DTensor):     # a partial sum: reduce it here
+            gold = hint(_vocab_parallel(
+                lambda lg, i: torch.gather(lg, -1, i[..., None])[..., 0],
+                logits, idx, 2, idx.shape), BATCH, None)
+        else:
+            gold = torch.gather(logits, -1, idx[..., None])[..., 0]
         tot = tot + ((lse - gold) * mc).sum()
         cnt = cnt + mc.sum()
     return tot / torch.clamp(cnt, min=1.0)

@@ -10,17 +10,28 @@ Recurrence (per head h, state S in R^{P x N}):
 ``ssd_reference`` runs it step by step (the oracle for the tests);
 ``apply_ssd`` is the chunked equivalent; ``ssd_step`` is the O(1) decode
 update.  B and C use a single group shared across heads.
+
+With DTensor inputs (``distributed``) the projections and the gated norm
+run through DTensor's sharding propagation, and the causal conv and the
+chunked scan run on each device's rows (``batch_local``: their einsums
+over the flattened batch and heads have no DTensor rule once both are
+sharded), with the scan's small parameters gathered.  The reference's
+head hints stand inside the scan, where they act on plain tensors.
 """
 from __future__ import annotations
 
+import functools
 import math
+from types import SimpleNamespace
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from ..device import DeviceLike
+from ..distributed.hints import BATCH, batch_local, gathered, hint
 from .config import ModelConfig
 from .layers import dt, param
 
@@ -69,7 +80,7 @@ def _causal_conv(cfg: ModelConfig, p: SSD, xBC: torch.Tensor) -> torch.Tensor:
     conv = cfg.ssm_conv
     pad = F.pad(xBC, (0, 0, conv - 1, 0))
     L = xBC.shape[1]
-    out = torch.zeros(xBC.shape, dtype=torch.float32, device=xBC.device)
+    out = torch.zeros_like(xBC, dtype=torch.float32)
     for j in range(conv):
         out = out + pad[:, j:j + L].float() * p.conv_w[j].float()
     out = out + p.conv_b.float()
@@ -81,7 +92,10 @@ def _gated_out(cfg: ModelConfig, p: SSD, y: torch.Tensor, z: torch.Tensor):
     g = y.float() * F.silu(z.float())
     g = g * torch.rsqrt(torch.mean(g * g, dim=-1, keepdim=True) + 1e-6)
     g = g * p.norm_scale.float()
-    return g.to(c) @ p.out_proj.to(c)
+    # out_proj's rows (d_inner) lie on "model": the input to match (on a
+    # mesh, a layout DTensor's propagation would not reach by itself)
+    return hint(g.to(c), BATCH, *(None,) * (g.dim() - 2), "model") @ \
+        p.out_proj.to(c)
 
 
 def apply_ssd(cfg: ModelConfig, p: SSD, xin: torch.Tensor,
@@ -90,13 +104,32 @@ def apply_ssd(cfg: ModelConfig, p: SSD, xin: torch.Tensor,
 
     return_state: also return (conv_state, ssd_state) at the final position
     (the prefill-to-decode handoff)."""
-    B, L, d = xin.shape
-    di, N, Hs, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     c = dt(cfg)
+    # the projection over the batch: its slices and the scan below are
+    # local to a row (left to itself, DTensor may shard the sequence)
+    proj = hint(xin.to(c) @ p.in_proj.to(c), BATCH, None, None)
+    if isinstance(proj, DTensor):   # the scan on each device's rows
+        p_scan = SimpleNamespace(**{n: gathered(getattr(p, n))
+                                    for n in _SCAN_PARAMS})
+    else:
+        p_scan = p
+    y, S_prev = batch_local(functools.partial(_scan, cfg, p_scan), proj)
+    out = _gated_out(cfg, p, y.to(c), proj[..., :cfg.d_inner])
+    if not return_state:
+        return out
+    return out, (_conv_tail(cfg, proj), S_prev)
+
+
+_SCAN_PARAMS = ("conv_w", "conv_b", "dt_bias", "A_log", "D")
+
+
+def _scan(cfg: ModelConfig, p, proj: torch.Tensor):
+    """The causal conv and the chunked scan of ``apply_ssd``: (y (B, L, di)
+    before the gate, the final state (B, Hs, P, N))."""
+    B, L, _ = proj.shape
+    di, N, Hs, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     Q = min(cfg.ssm_chunk, L)
     Lp = (L + Q - 1) // Q * Q
-
-    proj = xin.to(c) @ p.in_proj.to(c)
     z, xBC, dt_raw = _split_proj(cfg, proj)
     xBC = _causal_conv(cfg, p, xBC)
     x = xBC[..., :di]
@@ -112,8 +145,9 @@ def apply_ssd(cfg: ModelConfig, p: SSD, xin: torch.Tensor,
         Cm = F.pad(Cm, padw)
         dtv = F.pad(dtv, padw)  # dt=0 -> exp(0)=1 decay, dt x = 0: inert
     nc = Lp // Q
-    xh = x.reshape(B, nc, Q, Hs, P).float()
-    dtc = dtv.reshape(B, nc, Q, Hs)
+    xh = hint(x.reshape(B, nc, Q, Hs, P).float(), BATCH, None, None, "model",
+              None)
+    dtc = hint(dtv.reshape(B, nc, Q, Hs), BATCH, None, None, "model")
     Bc = Bm.reshape(B, nc, Q, N)
     Cc = Cm.reshape(B, nc, Q, N)
 
@@ -125,7 +159,8 @@ def apply_ssd(cfg: ModelConfig, p: SSD, xin: torch.Tensor,
     CB = torch.einsum("bcqn,bcsn->bcqs", Cc, Bc)
     decay = torch.exp(lam[:, :, :, None, :] - lam[:, :, None, :, :])
     # (B, nc, Q(t), Q(s), Hs)
-    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=xin.device))
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
+                                 device=proj.device))
     W = CB[..., None] * torch.where(mask[None, None, :, :, None], decay,
                                     torch.zeros_like(decay))
     W = W * dtc[:, :, None, :, :]            # dt_s
@@ -133,9 +168,10 @@ def apply_ssd(cfg: ModelConfig, p: SSD, xin: torch.Tensor,
 
     # chunk-final states
     sdecay = torch.exp(lam_tot[:, :, None, :] - lam) * dtc   # (B, nc, Q, Hs)
-    S_c = torch.einsum("bcqh,bcqhp,bcqn->bchpn", sdecay, xh, Bc)
+    S_c = hint(torch.einsum("bcqh,bcqhp,bcqn->bchpn", sdecay, xh, Bc),
+               BATCH, None, "model", None, None)
 
-    S_prev = torch.zeros((B, Hs, P, N), dtype=torch.float32, device=xin.device)
+    S_prev = torch.zeros_like(S_c[:, 0])
     y_inter = []
     for i in range(nc):
         # y_inter_t = exp(Lam_t) * C_t . S_prev
@@ -146,11 +182,7 @@ def apply_ssd(cfg: ModelConfig, p: SSD, xin: torch.Tensor,
 
     y = y_intra + y_inter
     y = y + p.D[None, None, None, :, None] * xh
-    y = y.reshape(B, Lp, di)[:, :L]
-    out = _gated_out(cfg, p, y.to(c), z)
-    if not return_state:
-        return out
-    return out, (_conv_tail(cfg, proj), S_prev)
+    return y.reshape(B, Lp, di)[:, :L], S_prev
 
 
 def _conv_tail(cfg: ModelConfig, proj: torch.Tensor) -> torch.Tensor:

@@ -45,6 +45,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..device import DeviceLike, resolve_device
+from ..distributed.hints import BATCH, hint
 from .config import ModelConfig
 from .layers import (MLP, Attention, Embed, Norm, chunked_softmax_xent, dt,
                      logits_last, param)
@@ -69,11 +70,17 @@ class AttnBlock(nn.Module):
             self.mlp = MLP(cfg, device)
 
     def forward(self, h, positions, cache=None, cache_index=None):
+        # the residual stream's layout at the reference's seq_parallel
+        # points: over (batch, sequence) with seq_parallel, else over the
+        # batch (GSPMD infers the latter; DTensor would carry a partial sum
+        # into the next norm)
+        seq = "model" if self.attn.cfg.seq_parallel and cache is None else None
+        h = hint(h, BATCH, seq, None)
         a_out, new_cache = self.attn(self.norm1(h), positions=positions,
                                      cache=cache, cache_index=cache_index)
-        h = h + a_out
+        h = hint(h + a_out, BATCH, seq, None)
         ffn = self.moe if hasattr(self, "moe") else self.mlp
-        return h + ffn(self.norm2(h)), new_cache
+        return hint(h + ffn(self.norm2(h)), BATCH, seq, None), new_cache
 
 
 class SSDBlock(nn.Module):
@@ -89,11 +96,14 @@ class Transformer(nn.Module):
     """The parameters of one model, under the reference's names: ``blocks``
     (one entry per layer), ``embed``, ``final_norm``, and ``shared``
     (hybrid), ``patch_proj`` (vlm) or ``frame_proj`` (audio).  Built with
-    uninitialised tensors; :func:`init_params` draws them."""
+    uninitialised tensors; :func:`init_params` draws them.  ``allow_meta``
+    lets the dry run's specs build it on ``"meta"`` (see
+    :func:`~repro_torch.device.resolve_device`)."""
 
-    def __init__(self, cfg: ModelConfig, device: DeviceLike = None):
+    def __init__(self, cfg: ModelConfig, device: DeviceLike = None, *,
+                 allow_meta: bool = False):
         super().__init__()
-        dev = resolve_device(device)
+        dev = resolve_device(device, allow_meta=allow_meta)
         self.cfg = cfg
         if cfg.family in ("dense", "vlm", "audio", "moe"):
             self.blocks = nn.ModuleList(
@@ -268,7 +278,7 @@ def forward_hidden(cfg: ModelConfig, model: Transformer, h: torch.Tensor, *,
 
 def loss_fn(cfg: ModelConfig, model: Transformer, batch: Dict[str, Any]
             ) -> torch.Tensor:
-    h = embed_inputs(cfg, model, batch)
+    h = hint(embed_inputs(cfg, model, batch), BATCH, None, None)
     S = h.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=h.device)
     h, _ = forward_hidden(cfg, model, h, positions=positions)
@@ -278,10 +288,11 @@ def loss_fn(cfg: ModelConfig, model: Transformer, batch: Dict[str, Any]
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16,
-               device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+               device: DeviceLike = None, *,
+               allow_meta: bool = False) -> Dict[str, torch.Tensor]:
     """Zeroed cache buffers on ``device`` (``cuda`` unless ``"cpu"`` is
-    named)."""
-    dev = resolve_device(device)
+    named; ``"meta"`` with ``allow_meta``, for the dry run's specs)."""
+    dev = resolve_device(device, allow_meta=allow_meta)
     L, B, S = cfg.num_layers, batch_size, max_len
 
     def zeros(shape, dt_=dtype):

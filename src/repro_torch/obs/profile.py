@@ -4,9 +4,11 @@ A :class:`PlannerProfile` is the ``profile=`` hook the unified planner
 API accepts (``repro_torch.core.api``): the dispatcher wraps the whole planner
 call in a ``total`` stage, which on the card ends when the device's work
 is done, and records call-shape metadata (scheme, resolved engine, batch
-size, fallback taken).  A planner registered with ``accepts_profile``
-receives the profile too, to time its internal stages and count work
-items; no planner of the port's device tier does so yet.
+size, fallback taken).  The planners registered with ``accepts_profile``
+(fr and ftr) receive the profile too: they time their internal stages
+(closed form, bisection, candidate generation, local search, final solve,
+witness extraction), each ending when the device's work is done, and count
+work items (lanes, candidate trees, bisection iterations).
 
 The contract is duck-typed on purpose: the planning core never imports
 this module — it calls ``profile.stage(name)`` (a context manager),

@@ -11,7 +11,9 @@ parameter's dtype.
 The parameters are the model's own tensors (a ``Transformer``, or a
 mapping of names to tensors), one per layer: ``apply_updates`` writes the
 new values into them and into the moments in place.  Moments are
-``OrderedDict``s keyed by parameter name.
+``OrderedDict``s keyed by parameter name.  DTensor parameters
+(``distributed``) get DTensor moments placed like them; Adafactor's
+factored moments and the step are replicated.
 
 Adafactor factors the reference's *stacked* leaves.  The reference stacks
 each layer's parameters along a leading axis, so a per-layer 1-D leaf
@@ -31,8 +33,10 @@ from typing import Any, List, Mapping, NamedTuple, Tuple, Union
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from ..device import DeviceLike, resolve_device
+from ..distributed.hints import replicate_like
 from ..ft.erasure import tree_flatten
 from ..models.convert import _STACKED
 from ..models.layers import _DTYPES
@@ -99,14 +103,21 @@ def init_opt(cfg: OptimizerConfig, params: Params,
     named = named_params(params)
     sdt = _DTYPES[cfg.state_dtype]
 
+    ref = next(iter(named.values()))
+
     def zeros(shape, dtype=sdt):
-        return torch.zeros(shape, dtype=dtype, device=dev)
+        return replicate_like(ref, torch.zeros(shape, dtype=dtype, device=dev))
+
+    def moment(p):
+        if isinstance(p, DTensor):      # sharded like its parameter
+            return torch.zeros_like(p, dtype=sdt)
+        return torch.zeros(p.shape, dtype=sdt, device=dev)
 
     def moments():
-        return collections.OrderedDict((n, zeros(p.shape))
+        return collections.OrderedDict((n, moment(p))
                                        for n, p in named.items())
 
-    step = zeros((), torch.int32)
+    step = torch.zeros((), dtype=torch.int32, device=dev)
     if cfg.mode == "adamw":
         return OptState(step=step, m=moments(), v=moments())
     v = collections.OrderedDict()

@@ -293,9 +293,13 @@ def test_plan_many_needs_cuda_or_cpu(monkeypatch):
 
 
 def test_profile_hook_notes_and_times():
+    """The duck-typed ``profile=`` contract (``note``, ``stage``,
+    ``count``): fr at MSR with every direct link positive times its
+    closed form inside the total, as the reference's batched engine does
+    (``test_torch_profile.py`` holds every scheme's stages to it)."""
     class Profile:
         def __init__(self):
-            self.notes, self.stages = [], []
+            self.notes, self.stages, self.counts = [], [], {}
 
         def note(self, **kw):
             self.notes.append(kw)
@@ -304,12 +308,17 @@ def test_profile_hook_notes_and_times():
             self.stages.append(name)
             return warnings.catch_warnings()     # any context manager
 
+        def count(self, name, n):
+            self.counts[name] = self.counts.get(name, 0) + n
+
     prof = Profile()
     pp = _params(port_core, 4, 2, False)
     port_core.plan_many(_caps(1, 3, 4), pp, "fr", profile=prof, device="cpu")
     assert prof.notes == [dict(scheme="fr", batch=3, d=4, engine="batched",
                                fallback=False)]
-    assert prof.stages == ["total"]
+    assert prof.stages == ["total", "closed_form"]
+    assert prof.counts == dict(lanes=3, closed_form_lanes=3,
+                               bisection_lanes=0)
 
 
 def test_batch_witnesses_match_reference():

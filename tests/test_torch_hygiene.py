@@ -55,6 +55,11 @@ def test_import_leaves_jax_and_reference_out():
     assert {"repro_torch.train", "repro_torch.serve",
             "repro_torch.serve.engine", "repro_torch.serve.serve_lm"} \
         <= set(MODULES)
+    assert {"repro_torch.distributed.sharding",
+            "repro_torch.distributed.hints", "repro_torch.launch.mesh",
+            "repro_torch.launch.specs", "repro_torch.launch.roofline",
+            "repro_torch.launch.dryrun", "repro_torch.quickstart"} \
+        <= set(MODULES)
 
 
 @pytest.mark.parametrize("path", [ROOT / "chip_smoke.py",
@@ -87,6 +92,34 @@ def test_default_device_raises_without_cuda(no_cuda):
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device("meta")
+
+
+def test_meta_only_for_the_dry_run(no_cuda):
+    """``"meta"`` is a device only through ``allow_meta=True``, which the
+    dry run's specs pass; every other entry point raises for it, and for
+    the default device without CUDA."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import specs
+    from repro_torch.models import Transformer, init_cache, init_params
+    from repro_torch.train import OptimizerConfig, init_opt
+    assert resolve_device("meta", allow_meta=True) == torch.device("meta")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device(allow_meta=True)
+    cfg = get_smoke_config("yi-6b")
+    for make in (lambda: resolve_device("meta"),
+                 lambda: Transformer(cfg, "meta"),
+                 lambda: init_params(cfg, device="meta"),
+                 lambda: init_cache(cfg, 1, 4, device="meta"),
+                 lambda: RlncSimulator(CodeParams.msr(n=8, k=2, d=4, M=6.0),
+                                       device="meta"),
+                 lambda: init_opt(OptimizerConfig(),
+                                  {"w": torch.ones(2)}, device="meta")):
+        with pytest.raises(ValueError, match="runs on cuda or cpu"):
+            make()
+    model = specs.params_specs(cfg)
+    assert {p.device.type for p in model.parameters()} == {"meta"}
+    assert {t.device.type for t in specs.cache_specs(cfg, 1, 4).values()} \
+        == {"meta"}
 
 
 def test_entry_points_raise_without_cuda(no_cuda):

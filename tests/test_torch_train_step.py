@@ -70,7 +70,20 @@ def test_train_step_matches_reference(arch, n_micro):
 
 
 def test_sharding_arguments_raise():
-    cfg, _, _ = pair("yi-6b")
-    for kw in (dict(grad_shardings={}), dict(gather_weights_once=True)):
-        with pytest.raises(NotImplementedError):
-            PT.make_train_step(cfg, PT.OptimizerConfig(), **kw)
+    """``grad_shardings`` places DTensor gradients: a model of plain
+    tensors, or a placement map that misses a parameter, raises
+    ``TypeError`` at the step (``test_torch_sharding.py`` runs the
+    options on meshes)."""
+    cfg, params, _ = pair("yi-6b")
+    model = from_reference_params(
+        cfg, jax.tree_util.tree_map(np.asarray, params), device="cpu")
+    opt = PT.init_opt(PT.OptimizerConfig(), model, device="cpu")
+    batch = {"tokens": torch.zeros((2, 8), dtype=torch.int32),
+             "labels": torch.zeros((2, 8), dtype=torch.int32)}
+    for kw in (dict(grad_shardings={}),
+               dict(grad_shardings={n: () for n, _ in
+                                    model.named_parameters()},
+                    gather_weights_once=True)):
+        step = PT.make_train_step(cfg, PT.OptimizerConfig(), **kw)
+        with pytest.raises(TypeError, match="DTensor parameter"):
+            step(model, opt, batch)
