@@ -23,9 +23,11 @@ nonzero:
    newcomer; and 64 sampled k-subsets must reconstruct.  The kernel's
    launch counter is zeroed before this phase and must have risen after.
 3. The kernel against its plain version on the card (``torch.equal``):
-   mapping probes (the identity with single-bit payloads at K = 1..5 and
-   1024, single set bits in a zero payload, N = 1000 and the byte-wise
-   N = 1001, a payload 4 bytes off alignment), ragged shapes, zeros, the
+   mapping probes (``mapping_probes``: the identity with single-bit
+   payloads at K = 1..5 and 1024 and N = 1000..1008, every N % 8; single
+   set bits in a zero payload at the tile edges and the last column; K =
+   1024 in chunks at odd N; M = 9..11 at odd N; a payload 1..7 bytes off
+   alignment), ragged shapes, zeros, the
    identity and every product shape the main path ran; the plain
    bit-matrix version against the plain version.  Then times of both at
    each main-path shape beside the card's bound for that work, and at the
@@ -100,7 +102,8 @@ nonzero:
       held to the plain version at every product shape of the phase on
       fresh operands at the full width, on column windows (the first and
       the last 4 MiB, which holds the ragged tail), and timed beside its
-      bound.
+      bound and, where N is odd (the shifted variant), beside the aligned
+      variant at N rounded down to a multiple of 8 (``aligned_ms``).
    b. yi-6b prefill (B = 1, S = 2048) and 16 teacher-forced decode steps:
       the logits are finite, and each equals the parallel forward's logits
       at its position within 5 % of the largest logit (bf16 over 32
@@ -983,6 +986,62 @@ def fleet_phase(seed: int, root: pathlib.Path) -> tuple:
     return records, fleet_kernel
 
 
+# -- phase 3: the kernel's mapping probes ----------------------------------
+
+def mapping_probes(compare, gen) -> None:
+    """The kernel against the plain version (``compare(a, b, label)``
+    raises unless they are equal) on probes that put every byte where the
+    layout says, in both variants: the identity with single-bit payloads at
+    every N % 8 (N = 1000 takes the aligned variant, 1001..1008 the shifted
+    one or, at 1008, the aligned one again), one set bit in a zero payload
+    at the tile edges 511/512/513 and at the last column, ragged and
+    chunked shapes, B 1..7 bytes off alignment, K = 1024 (chunked) at odd
+    N, M = 9..11 (two bands; at odd N the rows of C start at every offset
+    mod 8), the identity and zeros at N = 1e6."""
+    for kk in (1, 2, 3, 4, 5, 1024):
+        eye = torch.eye(kk, dtype=torch.uint8, device=DEVICE)
+        for n in range(1000, 1009):
+            for bit in range(8):
+                b = torch.full((kk, n), 1 << bit, dtype=torch.uint8,
+                               device=DEVICE)
+                if not torch.equal(compare(eye, b, f"I_{kk}, N={n}, bit {bit}"),
+                                   b):
+                    raise AssertionError(f"I . B != B at K={kk}, N={n}, "
+                                         f"bit {bit}")
+    a = rand_u8((9, 37), gen)
+    for k0, n0, bit in [(0, 0, 0), (36, 511, 7), (3, 512, 1), (5, 513, 3),
+                        (17, 1000, 6), (36, -1, 5), (0, -1, 2)]:
+        for n in (1001, 1003, 1007, 1024, 1031):
+            b = torch.zeros((37, n), dtype=torch.uint8, device=DEVICE)
+            col = n - 1 if n0 < 0 else min(n0, n - 1)
+            b[k0, col] = 1 << bit
+            got = compare(a, b, f"one bit at ({k0}, {col}, {bit}), N={n}")
+            if got[:, col].eq(0).all() or got[:, :col].any() \
+                    or got[:, col + 1:].any():
+                raise AssertionError(f"one bit at ({k0}, {col}), N={n}: "
+                                     f"output outside column {col}")
+    for m, kk, n in [(1, 1, 1), (7, 13, 1_000_003), (33, 1024, 100_000),
+                     (64, 1024, 4096), (5, 3, 17), (11, 48, 100_003),
+                     (9, 1024, 100_001), (33, 1024, 4097), (9, 48, 1001),
+                     (10, 48, 1003), (11, 48, 1005), (9, 16, 513),
+                     (10, 64, 511)]:
+        compare(rand_u8((m, kk), gen), rand_u8((kk, n), gen), (m, kk, n))
+    base = rand_u8((1, 8 * 4097 + 8), gen)[0]
+    for off in range(1, 8):
+        compare(rand_u8((5, 8), gen), base[off:off + 8 * 4096].view(8, 4096),
+                f"B at {off} bytes off, N=4096")
+        compare(rand_u8((11, 8), gen), base[off:off + 8 * 4097].view(8, 4097),
+                f"B at {off} bytes off, N=4097")
+    b = rand_u8((64, 1_000_000), gen)
+    eye = torch.eye(64, dtype=torch.uint8, device=DEVICE)
+    if not torch.equal(compare(eye, b, "identity"), b):
+        raise AssertionError("I . B != B")
+    zero = compare(torch.zeros((16, 64), dtype=torch.uint8, device=DEVICE),
+                   b, "zeros")
+    if zero.any():
+        raise AssertionError("0 . B != 0")
+
+
 # -- phase 6: checkpoint regeneration and the LM stack at full width -------
 
 def kernel_at_shapes(shape_log: "ShapeLog", phase_ms, seed: int,
@@ -990,8 +1049,16 @@ def kernel_at_shapes(shape_log: "ShapeLog", phase_ms, seed: int,
     """The kernel at every product shape ``shape_log`` saw, on fresh
     operands at the full width, held to the plain version on column windows
     (the first and the last FT_WINDOW bytes, which hold the ragged tail) and
-    timed beside its bound.  Returns (rows, totals over the calls)."""
+    timed beside its bound.  A row names the variant the shape launched;
+    where that is the shifted one, ``aligned_ms`` is the aligned variant's
+    warm time at the same M and K with N rounded down to a multiple of 8
+    (the same storage, so no copy): the shifted variant's yardstick.
+    Returns (rows, totals over the calls)."""
+    import importlib
+
     from repro_torch.kernels import gf_matmul_cuda, gf_matmul_ref
+    kmod = importlib.import_module("repro_torch.kernels.gf_matmul")
+    sms = kmod.device_sms(torch.device(DEVICE, torch.cuda.current_device()))
 
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(seed)
@@ -1005,12 +1072,22 @@ def kernel_at_shapes(shape_log: "ShapeLog", phase_ms, seed: int,
             if not torch.equal(got[:, lo:hi], gf_matmul_ref(a, bw)):
                 raise AssertionError(f"kernel != plain at {label} shape "
                                      f"{(m, kk, n)}, columns {lo}:{hi}")
+        variant = kmod.VARIANTS[kmod.launch_plan(
+            m, kk, n, sms, aligned=kmod.operands_aligned(b, got)).variant].name
         del got
         big = n >= MIB
+        reps = 2 if big else 20
         t_bytes, t_ops = bound_terms(m, kk, n)
+        n8 = n - n % 8
+        aligned_ms = None
+        if variant == "shifted" and n8:
+            b8 = b.view(-1)[:kk * n8].view(kk, n8)
+            aligned_ms = cuda_ms(lambda: gf_matmul_cuda(a, b8), reps)
+            del b8
         shapes.append(dict(
             shape=[m, kk, n], calls=calls, phase_ms=phase_ms[(m, kk, n)],
-            ms=cuda_ms(lambda: gf_matmul_cuda(a, b), 2 if big else 20),
+            variant=variant, aligned_ms=aligned_ms,
+            ms=cuda_ms(lambda: gf_matmul_cuda(a, b), reps),
             windows=[list(w) for w in wins],
             window_ms=sum(cuda_ms(lambda: gf_matmul_cuda(a, bw), 3)
                           for bw in bws),
@@ -1026,7 +1103,8 @@ def kernel_at_shapes(shape_log: "ShapeLog", phase_ms, seed: int,
     for r in sorted(shapes, key=lambda r: -r["phase_ms"])[:8]:
         log(f"    {label} {r['shape'][0]}x{r['shape'][1]}x{r['shape'][2]}: "
             f"{r['calls']} calls, {r['phase_ms']:.3f} ms in the phase, warm "
-            f"{r['ms']:.3f} ms a call (bound {r['bound_ms']:.3f}, "
+            f"{r['ms']:.3f} ms a call ({r['variant']}; aligned at N - N % 8 "
+            f"{r['aligned_ms']} ms; bound {r['bound_ms']:.3f}, "
             f"{r['bound_by']}); windows {r['window_ms']:.3f} ms, plain "
             f"{r['plain_window_ms']:.3f}")
     return shapes, total
@@ -1933,38 +2011,7 @@ def main(argv=None) -> int:
             raise AssertionError(f"kernel != plain at {label}: max err {err}")
         return got
 
-    # The identity with single-bit payloads puts every fragment byte,
-    # accumulator column and output byte where the layout says (N = 1000 is
-    # a multiple of 8, N = 1001 takes the byte-wise variant); one set bit in
-    # a zero payload lands in one output column.
-    for kk in (1, 2, 3, 4, 5, 1024):
-        eye = torch.eye(kk, dtype=torch.uint8, device=DEVICE)
-        for n in (1000, 1001):
-            for bit in range(8):
-                b = torch.full((kk, n), 1 << bit, dtype=torch.uint8,
-                               device=DEVICE)
-                if not torch.equal(compare(eye, b, f"I_{kk}, bit {bit}"), b):
-                    raise AssertionError(f"I . B != B at K={kk}, bit {bit}")
-    a = rand_u8((9, 37), gen)
-    for k0, n0, bit in [(0, 0, 0), (36, 511, 7), (5, 513, 3), (17, 1000, 6)]:
-        for n in (1001, 1024):
-            b = torch.zeros((37, n), dtype=torch.uint8, device=DEVICE)
-            b[k0, min(n0, n - 1)] = 1 << bit
-            compare(a, b, f"one bit at ({k0}, {n0}, {bit}), N={n}")
-    for m, kk, n in [(1, 1, 1), (7, 13, 1_000_003), (33, 1024, 100_000),
-                     (64, 1024, 4096), (5, 3, 17), (11, 48, 100_003)]:
-        compare(rand_u8((m, kk), gen), rand_u8((kk, n), gen), (m, kk, n))
-    base = rand_u8((1, 8 * 4096 + 4), gen)[0]
-    compare(rand_u8((5, 8), gen), base[4:].view(8, 4096), "B at 4 bytes off")
-    b = rand_u8((64, 1_000_000), gen)
-    eye = torch.eye(64, dtype=torch.uint8, device=DEVICE)
-    if not torch.equal(compare(eye, b, "identity"), b):
-        raise AssertionError("I . B != B")
-    zero = compare(torch.zeros((16, 64), dtype=torch.uint8, device=DEVICE),
-                   b, "zeros")
-    if zero.any():
-        raise AssertionError("0 . B != 0")
-    del b
+    mapping_probes(compare, gen)
     main_shapes = sorted(shape_log.shapes, key=lambda s: -s[0] * s[1] * s[2])
     for m, kk, n in main_shapes:
         compare(rand_u8((m, kk), gen), rand_u8((kk, n), gen), (m, kk, n))

@@ -29,7 +29,7 @@
 //     A in its prologue (x^j by shift-and-reduce, no table) straight into
 //     shared memory, as 8 x 16-byte core matrices, no swizzle: the band
 //     stays resident while the block walks its payload tiles, for K up to
-//     kChunkRows rows (else it is restaged per tile in chunks).
+//     the variant's chunk rows (else it is restaged per tile in chunks).
 //   * The payload bits are expanded in registers only, never in memory: the
 //     A operand comes from registers, where each 32-bit fragment register
 //     holds 4 consecutive depth values = 4 bits (a nibble) of one payload
@@ -57,10 +57,32 @@
 //     the same stretch of payload at once and L2 serves it after the first
 //     read.
 //   * Ragged shapes: rows of A past M and depth past K are zero in T, payload
-//     rows at or past K and columns at or past N are never read, and only
-//     rows < M and columns < N are written.  When N is not a multiple of 8 or
-//     B or C is not 8-byte aligned, the byte-wise variant is launched.
+//     rows at or past K are never read, and only rows < M and columns < N
+//     are written.
 //   * Offsets are 64-bit: the distribute output is about 4.0e9 bytes.
+//
+// Two variants share all of the above and differ in how they move bytes:
+//   * aligned (N % 8 == 0, B and C 8-byte aligned): a thread's 8 payload
+//     bytes are one aligned word, cp.async'd into an 8-byte slot, and its 8
+//     output bytes of an A row are one aligned 64-bit store.
+//   * shifted (any N, any base): a checkpoint's block is ceil(payload / M)
+//     bytes, odd at every model, and then a row's 8 bytes at column col
+//     start at p = B + k*N + col with r = p & 7 != 0.  TMA cannot take such
+//     rows (its row stride must be a multiple of 16 bytes), and padding B
+//     and C to whole words would copy tens of GB.  So the thread cp.asyncs
+//     the two aligned words at p - r and p - r + 8 into a 16-byte slot (the
+//     copy's size clamped at B's end, zero-filling the rest) and funnel-
+//     shifts its 8 bytes out by 8r when it reads the slot.  r depends only
+//     on the row: it is (B + krow * N) & 7 at even steps of a tile and that
+//     xor 4 (N odd) at odd ones, so it is two registers.  Bytes past column
+//     N are the next row's; they only feed columns that are never stored.
+//     On output, a row of C starts at (C + m*N) & 7, another offset for
+//     every row, so each warpgroup stages its 8 rows x 256 columns in
+//     shared memory and writes each row as a head of single bytes up to an
+//     8-byte boundary, aligned 64-bit words (neighbouring lanes on
+//     neighbouring words) and a tail of single bytes; a named barrier per
+//     warpgroup orders the staging and the stores.  The 16-byte slots
+//     double the ring, so this variant stages fewer rows of T at once.
 //
 // The launch geometry (bands, splits, padded K, chunk rows, variant) is
 // computed by the Python wrapper (kernels/gf_matmul.py::launch_plan) and
@@ -83,14 +105,38 @@ constexpr int kTileCols = kWgCols * kWarpgroups;   // 512 per block and tile
 constexpr int kStepRows = 4;                       // payload rows per 32-deep step
 constexpr int kUnroll = 4;                         // steps per unrolled loop body
 constexpr int kPadRows = kStepRows * kUnroll;      // K is padded to a multiple of 16
-constexpr int kAhead = 16;                         // payload steps in flight (a power of 2)
-constexpr int kRingBytes = kAhead * kThreads * 8;  // 32 KiB
-constexpr int kChunkRows = 384;                    // payload rows of T staged at once
 constexpr int kCoreBytes = 128;                    // 8 rows x 16 bytes
 constexpr int kDepthStride = kBandRows * kCoreBytes;  // next 16 depth bytes (LBO)
 constexpr int kSmemPerRow = 8 * kBandBits;         // T bytes per payload row
-constexpr int kMaxSmem = kSmemPerRow * kChunkRows + kRingBytes;  // 229,376 bytes
+constexpr int kSmemLimit = 232448;                 // dynamic shared memory a block may use
 constexpr int64_t kMaxGrid = 65535;
+
+// The variants (see the header): payload steps in flight (a power of 2),
+// ring bytes a thread and step, payload rows of T staged at once, and the
+// output staging.
+constexpr int kAligned = 0;
+constexpr int kAlignedAhead = 16;
+constexpr int kAlignedSlot = 8;
+constexpr int kAlignedChunkRows = 384;
+constexpr int kShifted = 1;
+constexpr int kShiftedAhead = 16;
+constexpr int kShiftedSlot = 16;
+constexpr int kShiftedChunkRows = 304;
+constexpr int kStageBytes = kBandRows * kTileCols;  // 4 KiB: a tile's output rows
+
+template <int kVariant>
+struct Variant {
+  static constexpr bool kShift = kVariant == kShifted;
+  static constexpr int kAhead = kShift ? kShiftedAhead : kAlignedAhead;
+  static constexpr int kSlot = kShift ? kShiftedSlot : kAlignedSlot;
+  static constexpr int kChunkRows = kShift ? kShiftedChunkRows : kAlignedChunkRows;
+  static constexpr int kRingBytes = kAhead * kThreads * kSlot;
+  static constexpr int kStage = kShift ? kStageBytes : 0;
+  static constexpr int kMaxSmem = kSmemPerRow * kChunkRows + kRingBytes + kStage;
+  static_assert((kAhead & (kAhead - 1)) == 0, "the ring's steps are a power of 2");
+  static_assert(kChunkRows % kPadRows == 0, "a chunk holds whole unrolled steps");
+  static_assert(kMaxSmem <= kSmemLimit, "over the block's shared memory");
+};
 
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -181,43 +227,27 @@ __device__ void stage_band(uint8_t* smem, const uint8_t* __restrict__ A,
   }
 }
 
-// Payload row k at the thread's 8 columns col..col+7, byte by byte (row
-// points at column col of row k): the low word feeds wgmma row r1, the high
-// word row r1 + 8.  The 8-byte variant copies them with cp.async instead.
-__device__ __forceinline__ void load_bytes(uint32_t& lo, uint32_t& hi,
-                                           const uint8_t* __restrict__ row, bool live,
-                                           int64_t col, int64_t N) {
-  lo = hi = 0u;
-  if (!live) return;
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    if (col + q < N) lo |= static_cast<uint32_t>(__ldg(row + q)) << (8 * q);
-    if (col + 4 + q < N) hi |= static_cast<uint32_t>(__ldg(row + 4 + q)) << (8 * q);
-  }
+// Bytes r..r+7 (r in 0..7) of the 16 little-endian bytes x0..x3, as the
+// low and high words of a uint2.
+__device__ __forceinline__ uint2 window8(uint32_t x0, uint32_t x1, uint32_t x2,
+                                         uint32_t x3, int r) {
+  const bool up = r & 4;
+  const uint32_t y0 = up ? x1 : x0, y1 = up ? x2 : x1, y2 = up ? x3 : x2;
+  return make_uint2(__funnelshift_r(y0, y1, 8 * r), __funnelshift_r(y1, y2, 8 * r));
 }
 
-template <bool kVec>
-__device__ __forceinline__ void store_pair(uint8_t* __restrict__ row, int64_t col,
-                                           int64_t N, uint32_t lo, uint32_t hi) {
-  if (kVec) {
-    if (col < N) *reinterpret_cast<uint2*>(row + col) = make_uint2(lo, hi);
-  } else {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      if (col + q < N) row[col + q] = static_cast<uint8_t>(lo >> (8 * q));
-      if (col + 4 + q < N) row[col + 4 + q] = static_cast<uint8_t>(hi >> (8 * q));
-    }
-  }
-}
-
-// The payload ring: each thread copies the 8 bytes it will consume kAhead
+// The payload ring: each thread copies the bytes it will consume kAhead
 // steps later (payload row k at its 8 columns) into its own slot, with
-// cp.async (zero-filled past K or N).  Only the thread that wrote a slot
-// reads it, so no barrier is needed: cp.async.wait_group orders it.
-__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src, bool live) {
+// cp.async (zero-filled past the `bytes` it is given).  Only the thread that
+// wrote a slot reads it, so no barrier is needed: cp.async.wait_group orders
+// it.
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src, int bytes) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(src),
-               "r"(live ? 8 : 0)
+               "r"(bytes)
                : "memory");
+}
+__device__ __forceinline__ int clamp8(int64_t bytes) {
+  return bytes < 0 ? 0 : bytes > 8 ? 8 : static_cast<int>(bytes);
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -228,8 +258,8 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Where the thread's payload loads stand: step `step` of tile `tile`, that
-// is payload row k, with p at column col of row k; `live` says the tile
-// exists and col < N.
+// is payload row k, with p at column col of row k (the shifted variant: at
+// the aligned word that holds it); `live` says the tile exists and col < N.
 struct Cursor {
   int64_t tile, col, k;
   const uint8_t* p;
@@ -237,48 +267,126 @@ struct Cursor {
   bool live;
 };
 
+// The shifted variant's per-thread constants.  Row krow + 4s is read at
+// even and odd steps s of a tile, so the thread's 8 bytes sit r_even or
+// r_odd bytes into the aligned word it copies, and that word moves on by
+// d_even or d_odd bytes a step.  A 16-byte copy from payload row k_near on
+// may pass `end`, one past B's last byte, and is clamped there.
+struct Shift {
+  int r_even, r_odd;
+  int64_t d_even, d_odd, k_near;
+  const uint8_t* end;
+};
+
 __device__ __forceinline__ void cursor_at(Cursor& c, const uint8_t* B, int64_t tile,
                                           int64_t col_in_tile, int64_t krow, int64_t N,
-                                          int64_t n_tiles) {
+                                          int64_t n_tiles, int back) {
   c.tile = tile;
   c.col = tile * kTileCols + col_in_tile;
   c.k = krow;
-  c.p = B + krow * N + c.col;
+  c.p = B + krow * N + c.col - back;
   c.step = 0;
   c.live = tile < n_tiles && c.col < N;
 }
 
-// Fills ring slot `slot` with the cursor's step, then moves the cursor on
-// by one step (to the next tile of the block after the last step).
-template <bool kVec>
+// Fills ring slot `slot` with the cursor's step (even or odd in its tile, as
+// `odd` says), then moves the cursor on by one step (to the next tile of the
+// block after the last step).  The shifted variant copies the two aligned
+// words from c.p on, never past B's last byte.
+template <int kVariant>
 __device__ __forceinline__ void fetch_step(Cursor& c, uint32_t ring, int slot,
                                            const uint8_t* __restrict__ B, int64_t K,
                                            int64_t N, int64_t n_tiles, int steps,
-                                           int64_t col_in_tile, int64_t krow) {
-  const uint32_t dst = ring + (slot * kThreads + threadIdx.x) * 8;
+                                           int64_t col_in_tile, int64_t krow,
+                                           const Shift& sh, bool odd) {
+  using V = Variant<kVariant>;
+  const uint32_t dst = ring + (slot * kThreads + threadIdx.x) * V::kSlot;
   const bool live = c.live && c.k < K;
-  if (kVec) {
-    cp_async8(dst, c.p, live);
+  if constexpr (V::kShift) {
+    int n0 = live ? 8 : 0, n1 = n0;
+    if (live && c.k >= sh.k_near) {
+      const int64_t left = sh.end - c.p;
+      n0 = clamp8(left);
+      n1 = clamp8(left - 8);
+    }
+    cp_async8(dst, c.p, n0);
+    cp_async8(dst + 8, c.p + 8, n1);
   } else {
-    uint32_t lo, hi;
-    load_bytes(lo, hi, c.p, live, c.col, N);
-    asm volatile("st.shared.v2.u32 [%0], {%1, %2};\n" ::"r"(dst), "r"(lo), "r"(hi)
-                 : "memory");
+    cp_async8(dst, c.p, live ? 8 : 0);
   }
   cp_async_commit();
   if (++c.step == steps) {
-    cursor_at(c, B, c.tile + gridDim.x, col_in_tile, krow, N, n_tiles);
+    cursor_at(c, B, c.tile + gridDim.x, col_in_tile, krow, N, n_tiles,
+              V::kShift ? sh.r_even : 0);
   } else {
     c.k += kStepRows;
-    c.p += kStepRows * N;
+    if constexpr (V::kShift) c.p += odd ? sh.d_odd : sh.d_even;
+    else c.p += kStepRows * N;
   }
 }
 
-template <bool kVec>
+// Orders the shared memory of one warpgroup's 128 threads (named barrier
+// 1 + wg; barrier 0 is __syncthreads).
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+}
+
+// The shifted variant's stores.  A warpgroup's staged 8 rows x kWgCols
+// columns (row stride kWgCols) go to C at column col0 < N, a multiple of
+// 8, so where a row's first 8-byte boundary falls is fixed over the tiles.
+// Each row is a head of single bytes up to that boundary, aligned words and
+// a tail of single bytes.  A thread stores word `lane` of rows warp and
+// warp + 4 and one head or tail byte, b of row tid / 16: `rows` holds those
+// three rows' starts in C (null past M) and their head bytes at a whole
+// tile.
+struct Rows {
+  uint8_t* at[3];
+  int head[3];
+};
+
+__device__ __forceinline__ void rows_at(Rows& rw, uint8_t* C, int64_t M, int64_t N,
+                                        int64_t m0, int warp, int tid) {
+  const int row[3] = {warp, warp + 4, tid >> 4};
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const int64_t m = m0 + row[i];
+    rw.at[i] = m < M ? C + m * N : nullptr;
+    rw.head[i] = static_cast<int>((0u - reinterpret_cast<uintptr_t>(C + m * N)) & 7);
+  }
+}
+
+__device__ __forceinline__ void store_staged(const Rows& rw, const uint8_t* stage,
+                                             int64_t N, int64_t col0, int warp,
+                                             int lane, int tid) {
+  const int len = static_cast<int>(N - col0 < kWgCols ? N - col0 : kWgCols);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (rw.at[i] == nullptr) continue;
+    const int h = rw.head[i];
+    const int head = h < len ? h : len;
+    if (lane < (len - head) >> 3) {
+      const uint8_t* s = stage + (warp + 4 * i) * kWgCols + 8 * lane;
+      const uint2 x = *reinterpret_cast<const uint2*>(s);
+      const uint2 y = h ? *reinterpret_cast<const uint2*>(s + 8) : make_uint2(0u, 0u);
+      *reinterpret_cast<uint2*>(rw.at[i] + col0 + head + 8 * lane) =
+          window8(x.x, x.y, y.x, y.y, h);
+    }
+  }
+  if (rw.at[2] != nullptr) {
+    const int b = tid & 15;
+    const int head = rw.head[2] < len ? rw.head[2] : len;
+    const int tail = head + 8 * ((len - head) >> 3);
+    const int off = b < head ? b : tail + (b - head);
+    if (off < len) rw.at[2][col0 + off] = stage[(tid >> 4) * kWgCols + off];
+  }
+}
+
+template <int kVariant>
 __global__ void __launch_bounds__(kThreads, 1)
 gf256_bitmatrix_kernel(const uint8_t* __restrict__ A, const uint8_t* __restrict__ B,
                        uint8_t* __restrict__ C, int64_t M, int64_t K, int64_t N,
                        int k_pad, int k_chunk) {
+  using V = Variant<kVariant>;
   extern __shared__ __align__(128) uint8_t smem[];
   const int wg = threadIdx.x >> 7;
   const int warp = (threadIdx.x >> 5) & 3;
@@ -294,12 +402,29 @@ gf256_bitmatrix_kernel(const uint8_t* __restrict__ A, const uint8_t* __restrict_
   const int64_t n_tiles = (N + kTileCols - 1) / kTileCols;
   const uint32_t sbase = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
   const uint32_t ring = sbase + kSmemPerRow * k_chunk;
+  // the shifted variant's output rows, kWgCols columns each per warpgroup
+  uint8_t* const stage = smem + kSmemPerRow * k_chunk + V::kRingBytes
+                       + wg * (kBandRows * kWgCols);
+  // the shifted variant's offsets (rows krow + 4s: 4sN is 4 mod 8 at odd s
+  // and odd N) and its stores' rows
+  Shift sh{};
+  Rows rows_out{};
+  if constexpr (V::kShift) {
+    sh.r_even = static_cast<int>((reinterpret_cast<uintptr_t>(B) + krow * N) & 7);
+    sh.r_odd = sh.r_even ^ static_cast<int>((N & 1) << 2);
+    sh.d_even = kStepRows * N + sh.r_even - sh.r_odd;
+    sh.d_odd = kStepRows * N + sh.r_odd - sh.r_even;
+    sh.k_near = K - (N + 14) / N;  // rows before it end 15 or more bytes before B's end
+    sh.end = B + K * N;
+    rows_at(rows_out, C, M, N, m0, warp, threadIdx.x & 127);
+  }
 
   Cursor cur;
-  cursor_at(cur, B, blockIdx.x, col_in_tile, krow, N, n_tiles);
+  cursor_at(cur, B, blockIdx.x, col_in_tile, krow, N, n_tiles, V::kShift ? sh.r_even : 0);
 #pragma unroll 1
-  for (int g = 0; g < kAhead; ++g)
-    fetch_step<kVec>(cur, ring, g, B, K, N, n_tiles, steps, col_in_tile, krow);
+  for (int g = 0; g < V::kAhead; ++g)
+    fetch_step<kVariant>(cur, ring, g, B, K, N, n_tiles, steps, col_in_tile, krow, sh,
+                         g & 1);
   if (n_chunks == 1) {
     stage_band(smem, A, M, K, m0, 0, k_pad);
     fence_proxy_async();
@@ -325,16 +450,30 @@ gf256_bitmatrix_kernel(const uint8_t* __restrict__ A, const uint8_t* __restrict_
         fence_proxy_async();
         __syncthreads();
       }
+      // a chunk starts at a multiple of kUnroll steps, so step u of an
+      // unrolled body is even or odd in the tile as u is
       for (int s0 = 0; s0 < rows / kStepRows; s0 += kUnroll) {
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) {
-          const int slot = static_cast<int>(gstep & (kAhead - 1u));
-          cp_async_wait<kAhead - 1>();
+          const int slot = static_cast<int>(gstep & (V::kAhead - 1u));
+          const uint32_t src = ring + (slot * kThreads + threadIdx.x) * V::kSlot;
+          cp_async_wait<V::kAhead - 1>();
           uint32_t lo, hi;  // payload row k at columns col..col+3 and col+4..col+7
-          asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n"
-                       : "=r"(lo), "=r"(hi)
-                       : "r"(ring + (slot * kThreads + threadIdx.x) * 8)
-                       : "memory");
+          if constexpr (V::kShift) {
+            uint32_t x0, x1, x2, x3;
+            asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+                         : "=r"(x0), "=r"(x1), "=r"(x2), "=r"(x3)
+                         : "r"(src)
+                         : "memory");
+            const uint2 w = window8(x0, x1, x2, x3, (u & 1) ? sh.r_odd : sh.r_even);
+            lo = w.x;
+            hi = w.y;
+          } else {
+            asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n"
+                         : "=r"(lo), "=r"(hi)
+                         : "r"(src)
+                         : "memory");
+          }
           // registers 0 and 1 take the low nibbles (depth 4t..4t+3 of rows
           // r1 and r1 + 8), registers 2 and 3 the high ones (depth 16+4t..)
           const uint32_t nibs[4] = {lo & 0x0F0F0F0Fu, hi & 0x0F0F0F0Fu,
@@ -351,7 +490,8 @@ gf256_bitmatrix_kernel(const uint8_t* __restrict__ A, const uint8_t* __restrict_
             for (int x = 0; x < 4; ++x) fence_reg(a[q][x]);
           }
           // the slot was read into a[]: refill it with the step kAhead on
-          fetch_step<kVec>(cur, ring, slot, B, K, N, n_tiles, steps, col_in_tile, krow);
+          fetch_step<kVariant>(cur, ring, slot, B, K, N, n_tiles, steps, col_in_tile, krow,
+                               sh, u & 1);
           ++gstep;
           const uint64_t desc = smem_desc(sbase + (s0 + u) * 2 * kDepthStride);
           wgmma_fence();
@@ -373,6 +513,7 @@ gf256_bitmatrix_kernel(const uint8_t* __restrict__ A, const uint8_t* __restrict_
     // Accumulator x of sub-tile q: wgmma row r1 + 8 * ((x >> 1) & 1), output
     // bit column 8 * (x >> 2) + 2t + (x & 1), i.e. bit 2t + (x & 1) of
     // A row m0 + (x >> 2).
+    if constexpr (V::kShift) warpgroup_sync(wg);  // the last tile's stores are done
 #pragma unroll
     for (int c = 0; c < kBandRows; ++c) {
       uint32_t o1 = 0, o2 = 0;
@@ -385,10 +526,20 @@ gf256_bitmatrix_kernel(const uint8_t* __restrict__ A, const uint8_t* __restrict_
       o1 |= __shfl_xor_sync(0xFFFFFFFFu, o1, 2);
       o2 |= __shfl_xor_sync(0xFFFFFFFFu, o2, 1);
       o2 |= __shfl_xor_sync(0xFFFFFFFFu, o2, 2);
-      const int64_t m = m0 + c;
-      if ((c >> 1) == t && m < M) {
-        store_pair<kVec>(C + m * N, col, N, o1, o2);
+      if ((c >> 1) == t) {
+        if constexpr (V::kShift) {
+          *reinterpret_cast<uint2*>(stage + c * kWgCols + (col_in_tile - wg * kWgCols)) =
+              make_uint2(o1, o2);
+        } else {
+          const int64_t m = m0 + c;
+          if (m < M && col < N) *reinterpret_cast<uint2*>(C + m * N + col) = make_uint2(o1, o2);
+        }
       }
+    }
+    if constexpr (V::kShift) {
+      warpgroup_sync(wg);
+      const int64_t col0 = tile * kTileCols + wg * kWgCols;
+      if (col0 < N) store_staged(rows_out, stage, N, col0, warp, lane, threadIdx.x & 127);
     }
   }
   cp_async_wait<0>();  // no copy is left in flight into freed shared memory
@@ -396,52 +547,72 @@ gf256_bitmatrix_kernel(const uint8_t* __restrict__ A, const uint8_t* __restrict_
 
 bool aligned8(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 7) == 0; }
 
+template <int kVariant>
+int set_smem() {
+  return static_cast<int>(cudaFuncSetAttribute(gf256_bitmatrix_kernel<kVariant>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               Variant<kVariant>::kMaxSmem));
+}
+
 }  // namespace
 
-// Lets both variants use kMaxSmem bytes of dynamic shared memory (more than
-// the default 48 KiB) on the current device.  Called once per device before
-// its first launch.
+// Lets each variant use its shared memory (more than the default 48 KiB) on
+// the current device.  Called once per device before its first launch.
 extern "C" int gf256_init() {
-  cudaError_t err = cudaFuncSetAttribute(gf256_bitmatrix_kernel<true>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(gf256_bitmatrix_kernel<false>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-  return static_cast<int>(err);
+  const int err = set_smem<kAligned>();
+  return err ? err : set_smem<kShifted>();
 }
 
 // The tile constants the Python launch plan must agree with: {band rows,
-// tile columns, K padding, chunk rows, shared bytes per row, ring bytes}.
+// tile columns, K padding, shared bytes per row}, then for the aligned and
+// the shifted variant in turn {steps in flight, slot bytes, chunk rows,
+// staging bytes}.
 extern "C" void gf256_geometry(int* out) {
   out[0] = kBandRows;
   out[1] = kTileCols;
   out[2] = kPadRows;
-  out[3] = kChunkRows;
-  out[4] = kSmemPerRow;
-  out[5] = kRingBytes;
+  out[3] = kSmemPerRow;
+  out[4] = Variant<kAligned>::kAhead;
+  out[5] = Variant<kAligned>::kSlot;
+  out[6] = Variant<kAligned>::kChunkRows;
+  out[7] = Variant<kAligned>::kStage;
+  out[8] = Variant<kShifted>::kAhead;
+  out[9] = Variant<kShifted>::kSlot;
+  out[10] = Variant<kShifted>::kChunkRows;
+  out[11] = Variant<kShifted>::kStage;
 }
 
 // Launches the bit-matrix kernel on the current device, which must hold A,
 // B and C, with the geometry of kernels/gf_matmul.py::launch_plan.
 extern "C" int gf256_matmul_launch(const void* A, const void* B, void* C, long long M,
                                    long long K, long long N, int k_pad, int k_chunk,
-                                   long long bands, long long splits, int vec,
+                                   long long bands, long long splits, int variant,
                                    void* stream) {
+  const bool shifted = variant == kShifted;
+  const int chunk_rows = shifted ? Variant<kShifted>::kChunkRows
+                                 : Variant<kAligned>::kChunkRows;
   if (M <= 0 || N <= 0 || K < 0 || k_pad < K || k_pad < kPadRows || k_pad % kPadRows
-      || k_chunk != (k_pad < kChunkRows ? k_pad : kChunkRows)
+      || k_chunk != (k_pad < chunk_rows ? k_pad : chunk_rows)
       || bands != (M + kBandRows - 1) / kBandRows || bands > kMaxGrid || splits < 1
-      || splits > kMaxGrid)
+      || splits > kMaxGrid || (variant != kAligned && !shifted))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (vec && !(N % 8 == 0 && aligned8(B) && aligned8(C)))
+  if (!shifted && !(N % 8 == 0 && aligned8(B) && aligned8(C)))
     return static_cast<int>(cudaErrorInvalidValue);
-  void (*kernel)(const uint8_t*, const uint8_t*, uint8_t*, int64_t, int64_t, int64_t,
-                 int, int) =
-      vec ? gf256_bitmatrix_kernel<true> : gf256_bitmatrix_kernel<false>;
   const dim3 grid(static_cast<unsigned>(splits), static_cast<unsigned>(bands));
-  kernel<<<grid, kThreads, kSmemPerRow * k_chunk + kRingBytes,
-           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(A), static_cast<const uint8_t*>(B),
-      static_cast<uint8_t*>(C), M, K, N, k_pad, k_chunk);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* a = static_cast<const uint8_t*>(A);
+  const auto* b = static_cast<const uint8_t*>(B);
+  auto* c = static_cast<uint8_t*>(C);
+  if (shifted) {
+    gf256_bitmatrix_kernel<kShifted>
+        <<<grid, kThreads,
+           kSmemPerRow * k_chunk + Variant<kShifted>::kRingBytes + Variant<kShifted>::kStage,
+           s>>>(a, b, c, M, K, N, k_pad, k_chunk);
+  } else {
+    gf256_bitmatrix_kernel<kAligned>
+        <<<grid, kThreads, kSmemPerRow * k_chunk + Variant<kAligned>::kRingBytes, s>>>(
+            a, b, c, M, K, N, k_pad, k_chunk);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -5,10 +5,13 @@
 it on the card and how it is laid out.  The launch geometry (bands of A,
 splits of the payload, K padding and chunks, variant) is computed here in
 Python by ``launch_plan``, so the CPU tests reach it; the library checks at
-load time that the source's tile constants agree.  At first use the source is compiled
-with ``nvcc`` for ``sm_90a`` into a shared library with a plain C interface
-under ``build/repro_torch/`` at the root of the checkout (named by a hash of
-the source and flags, so an edit rebuilds), and loaded with ``ctypes``.
+load time that the source's tile constants agree.  The variant is the
+aligned one (64-bit loads and stores) for N % 8 == 0 with 8-byte aligned
+operands, else the shifted one (aligned words shifted into place).  At
+first use the source is compiled with ``nvcc`` for ``sm_90a`` into a shared
+library with a plain C interface under ``build/repro_torch/`` at the root
+of the checkout (named by a hash of the source and flags, so an edit
+rebuilds), and loaded with ``ctypes``.
 Nothing is built or imported for CUDA when this module is imported.
 
 There is no fallback: a failed build or launch raises.
@@ -78,10 +81,37 @@ def _check(lib: ctypes.CDLL, err: int, what: str) -> None:
 BAND_ROWS = 8        # rows of A per band: 64 output bits, the wgmma N
 TILE_COLS = 512      # payload columns per block and tile (2 warpgroups)
 PAD_ROWS = 16        # K is padded to a multiple: 4 unrolled steps of 4 rows
-CHUNK_ROWS = 384     # payload rows of the band's T in shared memory at once
 SMEM_PER_ROW = 512   # bytes of T per payload row of a band
-RING_BYTES = 32768   # the payload ring: 16 steps x 256 threads x 8 bytes
+THREADS = 256        # two warpgroups
 MAX_GRID = 65535
+
+
+@dataclasses.dataclass(frozen=True)
+class Variant:
+    """How one variant of the kernel moves payload and output bytes.
+
+    ``aligned`` takes N % 8 == 0 with B and C on 8-byte boundaries: 8-byte
+    ring slots, 64-bit stores.  ``shifted`` takes any N and base: 16-byte
+    slots holding the two aligned words around a thread's 8 bytes, and the
+    output staged in shared memory (``stage_bytes``) and written as aligned
+    words between single-byte heads and tails.
+    """
+    name: str
+    ahead: int           # payload steps in flight in the ring
+    slot_bytes: int      # ring bytes a thread and step
+    chunk_rows: int      # payload rows of the band's T in shared memory at once
+    stage_bytes: int     # shared memory for a tile's output rows
+
+    @property
+    def ring_bytes(self) -> int:
+        return self.ahead * THREADS * self.slot_bytes
+
+
+ALIGNED, SHIFTED = 0, 1          # the launcher's variant numbers
+VARIANTS = (Variant("aligned", ahead=16, slot_bytes=8, chunk_rows=384,
+                    stage_bytes=0),
+            Variant("shifted", ahead=16, slot_bytes=16, chunk_rows=304,
+                    stage_bytes=BAND_ROWS * TILE_COLS))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,14 +121,15 @@ class LaunchPlan:
     The grid is (``splits``, ``bands``): block (x, y) computes A rows
     [8y, 8y + 8) for payload tiles x, x + splits, ...  K is zero-padded to
     ``k_pad`` and staged ``k_chunk`` payload rows at a time (one chunk, held
-    for the whole launch, when ``k_pad <= CHUNK_ROWS``).  ``vec`` picks the
-    64-bit load/store variant.
+    for the whole launch, when ``k_pad`` is at most the variant's chunk
+    rows).  ``variant`` is ``ALIGNED`` or ``SHIFTED`` (an index of
+    ``VARIANTS``).
     """
     bands: int
     splits: int
     k_pad: int
     k_chunk: int
-    vec: bool
+    variant: int
 
     @property
     def n_chunks(self) -> int:
@@ -106,7 +137,8 @@ class LaunchPlan:
 
     @property
     def smem_bytes(self) -> int:
-        return SMEM_PER_ROW * self.k_chunk + RING_BYTES
+        v = VARIANTS[self.variant]
+        return SMEM_PER_ROW * self.k_chunk + v.ring_bytes + v.stage_bytes
 
 
 @functools.lru_cache(maxsize=1024)
@@ -114,6 +146,8 @@ def launch_plan(M: int, K: int, N: int, num_sms: int,
                 aligned: bool = True) -> LaunchPlan:
     """Launch geometry for C (M, N) = A (M, K) . B (K, N) on a card with
     ``num_sms`` SMs; ``aligned`` says B and C start on 8-byte boundaries.
+    The aligned variant takes N % 8 == 0 with aligned operands, the shifted
+    one everything else.
 
     One block runs on an SM at a time, and blocks start in waves in grid
     order.  Every block of a band does the same work (its share of the
@@ -136,9 +170,16 @@ def launch_plan(M: int, K: int, N: int, num_sms: int,
         if w * splits < waves * s:        # w / s < waves / splits
             splits, waves = s, w
     k_pad = max(PAD_ROWS, -(-K // PAD_ROWS) * PAD_ROWS)
+    variant = ALIGNED if aligned and N % 8 == 0 else SHIFTED
     return LaunchPlan(bands=bands, splits=splits, k_pad=k_pad,
-                      k_chunk=min(k_pad, CHUNK_ROWS),
-                      vec=aligned and N % 8 == 0)
+                      k_chunk=min(k_pad, VARIANTS[variant].chunk_rows),
+                      variant=variant)
+
+
+def operands_aligned(b: torch.Tensor, c: torch.Tensor) -> bool:
+    """Whether the payload ``b`` and the output ``c`` start on 8-byte
+    boundaries, as the aligned variant needs."""
+    return b.data_ptr() % 8 == 0 and c.data_ptr() % 8 == 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -158,10 +199,11 @@ def library() -> ctypes.CDLL:
     lib.gf256_matmul_launch.restype = ctypes.c_int
     lib.gf256_error_string.argtypes = [ctypes.c_int]
     lib.gf256_error_string.restype = ctypes.c_char_p
-    geometry = (ctypes.c_int * 6)()
+    geometry = (ctypes.c_int * 12)()
     lib.gf256_geometry(geometry)
-    want = (BAND_ROWS, TILE_COLS, PAD_ROWS, CHUNK_ROWS, SMEM_PER_ROW,
-            RING_BYTES)
+    want = (BAND_ROWS, TILE_COLS, PAD_ROWS, SMEM_PER_ROW) + tuple(
+        x for v in VARIANTS
+        for x in (v.ahead, v.slot_bytes, v.chunk_rows, v.stage_bytes))
     if tuple(geometry) != want:
         raise RuntimeError(f"{SOURCE.name} has geometry {tuple(geometry)}, "
                            f"the wrapper {want}")
@@ -197,14 +239,14 @@ def gf_matmul_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if M == 0 or N == 0:
         return out
     plan = launch_plan(M, K, N, device_sms(a.device),
-                       aligned=b.data_ptr() % 8 == 0 and out.data_ptr() % 8 == 0)
+                       aligned=operands_aligned(b, out))
     lib = library()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.gf256_matmul_launch(a.data_ptr(), b.data_ptr(),
                                       out.data_ptr(), M, K, N, plan.k_pad,
                                       plan.k_chunk, plan.bands, plan.splits,
-                                      int(plan.vec), stream)
+                                      plan.variant, stream)
     _check(lib, err, f"gf256_matmul launch at (M, K, N) = {(M, K, N)}")
     gf_matmul_cuda.launches += 1
     return out

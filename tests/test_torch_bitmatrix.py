@@ -6,7 +6,8 @@ int8 tensor cores, and the kernel wrapper's launch arithmetic.
 held bitwise to the reference package: ``GF8`` (tables), the pure-jnp
 ``gf_matmul_ref`` and the Pallas kernel in interpret mode.  The CUDA kernel
 itself cannot run here; ``launch_plan`` (bands, splits, K padding, chunks,
-variant) is plain Python and is checked at every main-path shape.
+variant) is plain Python and is checked at every main-path shape and at
+the checkpoint's odd widths.
 """
 import importlib
 import re
@@ -40,6 +41,13 @@ MAIN_PATH_SHAPES = [
 ]
 H100_SMS = 132
 SMEM_LIMIT = 232_448      # bytes of shared memory a block may use on Hopper
+# (M, K, N) of the checkpoint's big products in chip_smoke.py's phases 6a
+# (yi-6b) and 7b (olmo-1b): a block is ceil(payload / 64) bytes, odd at both.
+# Save encodes, restore decodes, provider encodes.
+CHECKPOINT_SHAPES = [
+    (64, 64, 189_407_361), (128, 64, 189_407_361), (6, 16, 189_407_361),
+    (128, 64, 199_966_721), (64, 64, 199_966_721),
+]
 
 
 def _rand(m, k, n, seed):
@@ -184,32 +192,91 @@ def test_launch_plan_covers_every_main_path_shape(m, k, n):
     assert plan.k_pad % km.PAD_ROWS == 0 and 0 <= plan.k_pad - k < km.PAD_ROWS
     assert plan.k_chunk == plan.k_pad and plan.n_chunks == 1
     assert plan.smem_bytes <= SMEM_LIMIT
-    assert plan.vec          # N = 4 MiB and N = 240 are multiples of 8
+    assert plan.variant == km.ALIGNED   # N = 4 MiB and 240 are multiples of 8
 
 
 @pytest.mark.parametrize("m,k,n,want", [
-    # (bands, splits, k_pad, k_chunk, vec)
-    (960, 240, _W, (120, 11, 240, 240, True)),    # distribute: 10 full waves
-    (240, 240, _W, (30, 22, 240, 240, True)),     # decode: 5 full waves
-    (48, 94, _W, (6, 22, 96, 96, True)),          # regenerate: 132 SMs
-    (8, 48, _W, (1, 132, 48, 48, True)),          # encode: one band
-    (11, 48, _W, (2, 66, 48, 48, True)),          # a 9th row adds a band
-    (8, 48, 240, (1, 1, 48, 48, True)),           # one tile
-    (33, 1024, 100_000, (5, 132, 1024, 384, True)),  # K in chunks
-    (5, 3, 17, (1, 1, 16, 16, False)),            # N not a multiple of 8
-    (7, 13, 1_000_003, (1, 132, 16, 16, False)),
-    (3, 0, 5, (1, 1, 16, 16, False)),             # K = 0 writes zeros
+    # (bands, splits, k_pad, k_chunk, variant)
+    (960, 240, _W, (120, 11, 240, 240, "aligned")),  # distribute: 10 full waves
+    (240, 240, _W, (30, 22, 240, 240, "aligned")),   # decode: 5 full waves
+    (48, 94, _W, (6, 22, 96, 96, "aligned")),        # regenerate: 132 SMs
+    (8, 48, _W, (1, 132, 48, 48, "aligned")),        # encode: one band
+    (11, 48, _W, (2, 66, 48, 48, "aligned")),        # a 9th row adds a band
+    (8, 48, 240, (1, 1, 48, 48, "aligned")),         # one tile
+    (33, 1024, 100_000, (5, 132, 1024, 384, "aligned")),  # K in chunks
+    (5, 3, 17, (1, 1, 16, 16, "shifted")),           # N not a multiple of 8
+    (7, 13, 1_000_003, (1, 132, 16, 16, "shifted")),
+    (3, 0, 5, (1, 1, 16, 16, "shifted")),            # K = 0 writes zeros
 ])
 def test_launch_plan_values(m, k, n, want):
     plan = km.launch_plan(m, k, n, H100_SMS)
-    assert (plan.bands, plan.splits, plan.k_pad, plan.k_chunk, plan.vec) == want
+    v = km.VARIANTS[plan.variant]
+    assert (plan.bands, plan.splits, plan.k_pad, plan.k_chunk, v.name) == want
     assert plan.n_chunks == -(-plan.k_pad // plan.k_chunk)
-    assert plan.smem_bytes == km.SMEM_PER_ROW * plan.k_chunk + km.RING_BYTES
+    assert plan.smem_bytes == (km.SMEM_PER_ROW * plan.k_chunk + v.ring_bytes
+                               + v.stage_bytes)
+
+
+@pytest.mark.parametrize("residue", range(1, 8))
+@pytest.mark.parametrize("m,k,n", CHECKPOINT_SHAPES)
+def test_launch_plan_takes_the_shifted_variant_at_every_odd_width(m, k, n,
+                                                                  residue):
+    """Every N % 8 != 0 goes to the shifted variant, on the same grid as
+    the aligned one at N rounded down to a multiple of 8, with K held in
+    one resident chunk."""
+    n8 = n - n % 8
+    plan = km.launch_plan(m, k, n8 + residue, H100_SMS)
+    aligned = km.launch_plan(m, k, n8, H100_SMS)
+    assert (plan.variant, aligned.variant) == (km.SHIFTED, km.ALIGNED)
+    assert (plan.bands, plan.splits, plan.k_pad) == \
+        (aligned.bands, aligned.splits, aligned.k_pad)
+    assert plan.k_chunk == plan.k_pad == max(km.PAD_ROWS, k)
+    assert plan.n_chunks == 1 and plan.smem_bytes <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("offset", range(8))
+@pytest.mark.parametrize("m,k,n", CHECKPOINT_SHAPES[:2])
+def test_launch_plan_takes_the_shifted_variant_off_alignment(m, k, n,
+                                                             offset):
+    """B or C 1..7 bytes off an 8-byte boundary takes the shifted variant
+    even at N % 8 == 0 (the wrapper reads the alignment off the pointers)."""
+    n8 = n - n % 8
+    base = torch.zeros(64, dtype=torch.uint8)
+    off, at0 = base[offset:offset + 8], base[:8]
+    assert base.data_ptr() % 8 == 0
+    for b, c in [(off, at0), (at0, off)]:
+        plan = km.launch_plan(m, k, n8, H100_SMS,
+                              aligned=km.operands_aligned(b, c))
+        assert plan.variant == (km.ALIGNED if offset == 0 else km.SHIFTED)
+
+
+def test_variant_budgets():
+    """Each variant's shared memory (the band's T at its chunk rows, the
+    ring, the output staging) fits a Hopper block; the shifted variant's
+    16-byte slots double the ring, so it stages fewer rows of T."""
+    al, sh = km.VARIANTS
+    assert (al.name, al.ahead, al.slot_bytes, al.chunk_rows, al.stage_bytes) \
+        == ("aligned", 16, 8, 384, 0)
+    assert (sh.name, sh.ahead, sh.slot_bytes, sh.chunk_rows, sh.stage_bytes) \
+        == ("shifted", 16, 16, 304, 4096)
+    for v in km.VARIANTS:
+        smem = km.SMEM_PER_ROW * v.chunk_rows + v.ring_bytes + v.stage_bytes
+        assert smem <= SMEM_LIMIT
+        assert v.chunk_rows % km.PAD_ROWS == 0 and v.ahead & (v.ahead - 1) == 0
+    assert (al.ring_bytes, sh.ring_bytes) == (32_768, 65_536)
+    assert km.SMEM_PER_ROW * al.chunk_rows + al.ring_bytes == 229_376
+    assert km.SMEM_PER_ROW * sh.chunk_rows + sh.ring_bytes + 4096 == 225_280
+    # K past the shifted variant's chunk rows is staged in chunks of them
+    plan = km.launch_plan(9, 1024, 1001, H100_SMS)
+    assert (plan.variant, plan.k_chunk, plan.n_chunks) == (km.SHIFTED, 304, 4)
+    assert plan.smem_bytes == 225_280
 
 
 def test_launch_plan_alignment_and_limits():
-    assert not km.launch_plan(8, 48, 4096, H100_SMS, aligned=False).vec
-    assert km.launch_plan(8, 48, 4096, H100_SMS, aligned=True).vec
+    assert km.launch_plan(8, 48, 4096, H100_SMS,
+                          aligned=False).variant == km.SHIFTED
+    assert km.launch_plan(8, 48, 4096, H100_SMS,
+                          aligned=True).variant == km.ALIGNED
     for bad in [(0, 4, 4), (4, 4, 0), (4, -1, 4)]:
         with pytest.raises(ValueError):
             km.launch_plan(*bad, H100_SMS)
@@ -228,11 +295,21 @@ def test_launch_plan_agrees_with_the_kernel_source():
     def const(name):
         return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
 
-    threads = 128 * const("kWarpgroups")
+    assert km.THREADS == 128 * const("kWarpgroups")
     assert km.BAND_ROWS == const("kBandRows")
     assert km.TILE_COLS == 64 * const("kSub") * const("kWarpgroups")
     assert km.PAD_ROWS == const("kStepRows") * const("kUnroll")
-    assert km.CHUNK_ROWS == const("kChunkRows")
     assert km.SMEM_PER_ROW == 8 * 8 * const("kBandRows")
-    assert km.RING_BYTES == const("kAhead") * threads * 8
-    assert km.SMEM_PER_ROW * km.CHUNK_ROWS + km.RING_BYTES <= SMEM_LIMIT
+    assert const("kSmemLimit") == SMEM_LIMIT
+    assert (km.ALIGNED, km.SHIFTED) == (const("kAligned"), const("kShifted"))
+    for v, name in zip(km.VARIANTS, ("Aligned", "Shifted")):
+        assert v.ahead == const(f"k{name}Ahead")
+        assert v.slot_bytes == const(f"k{name}Slot")
+        assert v.chunk_rows == const(f"k{name}ChunkRows")
+        assert km.SMEM_PER_ROW * v.chunk_rows + v.ring_bytes \
+            + v.stage_bytes <= SMEM_LIMIT
+    assert km.VARIANTS[km.SHIFTED].stage_bytes == km.BAND_ROWS * km.TILE_COLS
+    assert km.VARIANTS[km.ALIGNED].stage_bytes == 0
+    # every payload load is a cp.async of whole words (no byte loads)
+    assert "load_bytes" not in src and "store_pair" not in src
+    assert "__ldg" not in src
