@@ -104,18 +104,48 @@ nonzero:
       the last 4 MiB, which holds the ragged tail), and timed beside its
       bound and, where N is odd (the shifted variant), beside the aligned
       variant at N rounded down to a multiple of 8 (``aligned_ms``).
-   b. yi-6b prefill (B = 1, S = 2048) and 16 teacher-forced decode steps:
-      the logits are finite, and each equals the parallel forward's logits
-      at its position within 5 % of the largest logit (bf16 over 32
-      layers); layer 0's chunked attention equals a dense fp32 attention
-      on the same q, k and v within 2e-2 absolute plus 2e-2 relative (bf16
-      rounds the probabilities and the output).
+   b. yi-6b prefill (B = 1, S = 2048) and 16 teacher-forced decode steps,
+      each run twice in turns (which goes first alternates a step): by
+      eager ``decode_step`` (an int position, copied to the card each
+      step) on the prefilled cache, and
+      by a ``serve.DecodeGraph`` (the step captured as a CUDA graph, its
+      position a device tensor) over a copy of that cache.  Each step's
+      graph logits must equal the eager ones bitwise or within one bf16
+      ulp of the step's largest |logit| (whether they were bitwise equal
+      is recorded); both paths' logits are finite and equal the parallel
+      forward's at their positions within 5 % of the largest logit (bf16
+      over 32 layers); layer 0's chunked attention equals a dense fp32
+      attention on the same q, k and v within 2e-2 absolute plus 2e-2
+      relative (bf16 rounds the probabilities and the output).
 
    It records the state's bytes, save, plan, execute and restore times
    (host clock ending in a synchronize), kernel launches and ms (CUDA
    events around each product), blocks moved against M, each scheme's
-   predicted time, prefill and decode times, and peak memory above the
-   phase's baseline.
+   predicted time, prefill times, and peak memory above the phase's
+   baseline; for the decode steps, each path's ms a step (host clock to
+   a synchronize, and CUDA events around the step or the replay), the
+   graph's build (three warm-up steps and the capture) and capture ms,
+   the kernels of one eager step and of one replay with the five taking
+   the most device time (``torch.profiler``), and the step's bytes bound
+   (the parameters it reads, the cache, the logits, over HBM).
+
+   b'. (run after 7a, one model on the card at a time) the same
+      eager-against-graph check, gates and records at the moe and hybrid
+      families' full width, random weights from ``--seed``: olmoe-1b-7b
+      (64 experts, top 8; the bound counts only the experts a step routes
+      to) and zamba2-7b (81 ssm layers and 13 shared-attention
+      applications), B = 4, prompts of 128 tokens, 16 steps; both paths'
+      gap to the parallel forward is recorded.  Then the same cell with
+      fp32 weights, where bf16's rounding cannot hide a fault in the step
+      (over 81 layers it drifts to about 5-7 % of the largest logit; in
+      fp32 the step is the forward's to within ``FP32_LOGIT_TOL``): graph
+      against eager as above, and both paths' logits within 1e-3 of the
+      forward's largest |logit|.  olmoe's prefill and forward run with
+      room in every expert for every pair of a row, so they drop none, as
+      the decode step (one token a row) never does.  Then the graph
+      against eager at every causal smoke config in bf16 (dense, moe,
+      ssm, hybrid, vlm: B = 2, prompts of 12, 16 steps), so that each
+      family's step is captured and replayed on the card.
 
 7. Serving and training on the card (``repro_torch.serve``,
    ``repro_torch.train``):
@@ -127,9 +157,19 @@ nonzero:
       have the right ids, lengths and token range; each greedy token's
       logit in the parallel forward over the same padded sequence must be
       within 5 % of the largest |logit| of the forward's largest logit (the
-      gate of 6b); a second engine with the same seed must give the same
-      tokens.  Records prefill ms per chunk, decode ms per step, tokens/s
-      and peak memory.
+      gate of 6b).  On the card every decode step replays the engine's
+      one CUDA graph of 4 rows (the second chunk's 2 requests decode in it
+      beside 2 spare rows); the number of replays must equal the decode
+      steps, the decoder must be that graph, and it must be built once an
+      engine.  The same engine serves the requests again with its sampler
+      reseeded (its graph and cache reused), and a second engine with the
+      same seed serves them; both must give the same tokens.  Records
+      prefill ms per chunk, decode ms per step (host clock around each
+      replay to a synchronize), tokens/s with the capture in the wall and
+      with the graph reused, the graph's build and capture ms, the kernels
+      of one replay and the step's bytes bound, peak memory allocated, and
+      the memory the allocator holds (``memory_reserved``) before the
+      phase and after each run, the graph's private pool included.
    b. ``train`` on olmo-1b at its published width (1,279,787,008 bf16
       parameters, AdamW with fp32 moments and an fp32 accumulator, the
       reference's dtype policy): batches of 4 x 2048 tokens in 2
@@ -172,7 +212,8 @@ nonzero:
       collectives and the H100 roofline per cell.
 
 The lines before the last are the ``{"planning": [...]}``, ``{"fleet":
-[...]}``, ``{"ft": {...}}``, ``{"train": {...}}``, ``{"shard": {...}}``
+[...]}``, ``{"ft": {...}}`` (6b' under ``"lm_graphs"``: ``"full"`` and ``"smoke"``), ``{"train":
+{...}}``, ``{"shard": {...}}``
 and ``{"kernels": [...]}`` records (the kernel's entry carries its fleet-path,
 checkpoint-path and train-path launches, times and shapes under
 ``"fleet"``, ``"ft"`` and ``"train"``); the last line is ``{"ok": true,
@@ -248,6 +289,11 @@ FT_SCHEMES = ("star", "fr", "tr", "ftr", "auto")
 FT_WINDOW = 4 * MIB                       # payload columns held to plain
 LM_PROMPT, LM_DECODE = 2048, 16
 LM_LOGIT_TOL = 5e-2                       # of the largest |logit|
+# 6b': the captured decode step at the moe and hybrid families' full width
+GRAPH_ARCHS = ("olmoe-1b-7b", "zamba2-7b")
+GRAPH_BATCH, GRAPH_PROMPT = 4, 128
+SMOKE_PROMPT = 12                         # 6b' at every causal smoke config
+FP32_LOGIT_TOL = 1e-3                     # 6b' with fp32 weights
 ATTN_TOL = 2e-2                           # absolute and relative
 # phase 7: serving at yi-6b (phase 6's model), training olmo-1b at its
 # published width (src/repro/configs/olmo_1b.py:6-10) with a host failure
@@ -1241,8 +1287,7 @@ def lm_phase(seed: int, cfg, model) -> dict:
     """Phase 6b (see the module docstring): prefill and teacher-forced
     decode of ``model`` on the card, held to its parallel forward, and one
     layer's chunked attention held to a dense fp32 attention."""
-    from repro_torch.models import (decode_step, embed_inputs, forward_hidden,
-                                    init_cache, prefill)
+    from repro_torch.models import init_cache, prefill
     from repro_torch.models.layers import chunked_attention
 
     dev = torch.device(DEVICE, torch.cuda.current_device())
@@ -1259,35 +1304,18 @@ def lm_phase(seed: int, cfg, model) -> dict:
         first, cache = prefill(cfg, model, {"tokens": toks[:, :S]}, cache)
         torch.cuda.synchronize()
         prefill_s.append(time.perf_counter() - t0)
-    steps, decode_s = [first], []
-    for i in range(T):                      # each token ends in a sync
-        t0 = time.perf_counter()
-        logits, cache = decode_step(cfg, model, cache, toks[:, S + i:S + i + 1],
-                                    S + i)
-        torch.cuda.synchronize()
-        decode_s.append(time.perf_counter() - t0)
-        steps.append(logits)
-    got = torch.cat(steps)                  # positions S-1 .. S+T-1
-    with torch.no_grad():
-        t0 = time.perf_counter()
-        h = embed_inputs(cfg, model, {"tokens": toks})
-        h, _ = forward_hidden(cfg, model, h, positions=torch.arange(
-            S + T, dtype=torch.int32, device=dev))
-        h = model.final_norm(h)
-        want = h[0, S - 1:].float() @ model.embed.table().float().t()
-        torch.cuda.synchronize()
-        forward_s = time.perf_counter() - t0
-    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
-        raise AssertionError("non-finite logits")
-    logit_err = float((got - want).abs().max())
-    logit_scale = float(want.abs().max())
-    if logit_err > LM_LOGIT_TOL * logit_scale:
-        raise AssertionError(f"decode logits differ from the forward's by "
-                             f"{logit_err}, over {LM_LOGIT_TOL} x "
-                             f"{logit_scale}")
-    argmax_equal = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    eager, graphed, graph_rec = eager_vs_graph(cfg, model, cache,
+                                               toks[:, S:], S, S + T)
+    decode_s = [t / 1e3 for t in graph_rec.pop("eager_ms_each")]
+    t0 = time.perf_counter()
+    want = forward_logits(cfg, model, {"tokens": toks}, S)
+    torch.cuda.synchronize()
+    forward_s = time.perf_counter() - t0
+    gate = forward_gap(cfg, want, first, eager, graphed, tol=LM_LOGIT_TOL)
+    logit_scale, logit_err = gate["logit_max_abs"], gate["logit_max_abs_err"]
+    argmax_equal = gate["argmax_equal"]
     lm_peak = torch.cuda.max_memory_allocated() - base
-    del h, cache, steps
+    del cache, eager, graphed, want
 
     # layer 0's chunked attention against a dense fp32 attention
     with torch.no_grad():
@@ -1319,19 +1347,351 @@ def lm_phase(seed: int, cfg, model) -> dict:
                decode_first_ms=decode_s[0] * 1e3,
                decode_ms_per_token=statistics.median(decode_s[1:]) * 1e3,
                decode_ms=[t * 1e3 for t in decode_s],
+               graph=graph_rec,
                forward_ms=forward_s * 1e3, logit_max_abs_err=logit_err,
                logit_max_abs=logit_scale, logit_tol=LM_LOGIT_TOL,
                argmax_equal=argmax_equal, attention_ms=attn_s * 1e3,
                attention_max_abs_err=attn_err, attention_tol=ATTN_TOL,
                peak_gib=lm_peak / 2**30, base_gib=base / 2**30)
     log(f"  {cfg.name} prefill S = {S}: {rec['prefill_cold_ms']:.1f} ms cold, "
-        f"{rec['prefill_ms']:.1f} ms warm; decode {rec['decode_first_ms']:.1f} "
-        f"ms the first token, median {rec['decode_ms_per_token']:.2f} ms the "
-        f"others; teacher-forced logits within {logit_err:.4f} of the "
-        f"forward's (largest {logit_scale:.3f}, argmax equal {argmax_equal:.2f})"
-        f"; layer-0 attention within {attn_err:.5f} of dense fp32; peak "
-        f"{rec['peak_gib']:.2f} GiB above {rec['base_gib']:.2f} GiB")
+        f"{rec['prefill_ms']:.1f} ms warm; eager decode "
+        f"{rec['decode_first_ms']:.1f} ms the first token, median "
+        f"{rec['decode_ms_per_token']:.2f} ms the others; teacher-forced "
+        f"logits within {logit_err['eager']:.4f} (eager) and "
+        f"{logit_err['graph']:.4f} (graph) of the forward's (largest "
+        f"{logit_scale:.3f}, argmax equal {argmax_equal['eager']:.2f} and "
+        f"{argmax_equal['graph']:.2f}); layer-0 attention within "
+        f"{attn_err:.5f} of dense fp32; peak {rec['peak_gib']:.2f} GiB above "
+        f"{rec['base_gib']:.2f} GiB")
     return rec
+
+
+@torch.no_grad()
+def forward_logits(cfg, model, batch, start: int) -> torch.Tensor:
+    """The parallel forward's fp32 logits over ``batch`` at positions
+    start-1 .. the end: (B, T+1, V)."""
+    from repro_torch.models import embed_inputs, forward_hidden
+
+    h = embed_inputs(cfg, model, batch)
+    h, _ = forward_hidden(cfg, model, h, positions=torch.arange(
+        h.shape[1], dtype=torch.int32, device=h.device))
+    h = model.final_norm(h)
+    return h[:, start - 1:].float() @ model.embed.table().float().t()
+
+
+def forward_gap(cfg, want, first, eager, graphed, tol=None) -> dict:
+    """The prefill's logits ``first`` (B, V) and each path's teacher-forced
+    step logits ((T, B, V)) against the forward's, ``want``
+    (``forward_logits``), at their positions: the forward's largest
+    |logit|, each path's largest difference and the share of positions
+    whose argmax equals the forward's.  Every logit must be finite; with
+    ``tol``, each difference must be within ``tol`` times that largest
+    |logit| (the gate of 6b)."""
+    scale = float(want.abs().max())
+    err, argmax_equal = {}, {}
+    for path, steps in (("eager", eager), ("graph", graphed)):
+        got = torch.cat([first[:, None], steps.transpose(0, 1)], dim=1)
+        if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+            raise AssertionError(f"{cfg.name}: non-finite logits ({path})")
+        err[path] = float((got - want).abs().max())
+        if tol is not None and err[path] > tol * scale:
+            raise AssertionError(f"{cfg.name}: {path} decode logits differ "
+                                 f"from the forward's by {err[path]}, over "
+                                 f"{tol} x {scale}")
+        argmax_equal[path] = float((got.argmax(-1) == want.argmax(-1))
+                                   .float().mean())
+    return dict(logit_max_abs=scale, logit_max_abs_err=err,
+                argmax_equal=argmax_equal, logit_tol=tol)
+
+
+@contextlib.contextmanager
+def room_for_every_pair(model):
+    """Each MoE block with the capacity for every (token, expert) pair of
+    a row, so that a prefill and a parallel forward drop none, as a decode
+    step (one token a row, K distinct experts, capacity at least 1) never
+    does; the decode step's capacity is the same with it or without."""
+    from repro_torch.models.moe import MoE
+
+    mods = [m for m in model.modules() if isinstance(m, MoE)]
+    saved = [m.cfg for m in mods]
+    for m in mods:
+        m.cfg = dataclasses.replace(m.cfg, moe_capacity_factor=(
+            m.cfg.num_experts / m.cfg.experts_per_token))
+    try:
+        yield
+    finally:
+        for m, c in zip(mods, saved):
+            m.cfg = c
+
+
+def bf16_ulp(x: float) -> float:
+    """One bf16 ulp (8 significant bits) at magnitude ``x``."""
+    return 2.0 ** (math.floor(math.log2(x)) - 7) if x > 0 else 0.0
+
+
+def device_profile(fn) -> dict:
+    """What one call of ``fn`` ran on the card (``torch.profiler``, CPU and
+    CUDA activities): kernels, copies and sets, their summed device ms, the
+    span from the first start to the last end, and the five kernels taking
+    the most device time."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    kern = [e for e in evs if not e.name.startswith(("Memcpy", "Memset"))]
+    by_name = collections.defaultdict(lambda: [0, 0.0])
+    for e in kern:
+        by_name[e.name][0] += 1
+        by_name[e.name][1] += e.time_range.elapsed_us() / 1e3
+    busy = sum(e.time_range.elapsed_us() for e in evs) / 1e3
+    span = (max(e.time_range.end for e in evs)
+            - min(e.time_range.start for e in evs)) / 1e3 if evs else 0.0
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:5]
+    return dict(kernels=len(kern), copies=len(evs) - len(kern),
+                device_busy_ms=busy, device_span_ms=span,
+                top=[dict(name=n[:160], calls=c, ms=ms)
+                     for n, (c, ms) in top])
+
+
+def decode_bound(cfg, model, cache, tokens, pos: int) -> dict:
+    """The least time of one decode step over ``cache``: the bytes it must
+    move over HBM.  Every parameter read once, but of the token table only
+    the B rows looked up and of the MoE experts only those this step routes
+    to (counted with a hook on each MoE's input, during one eager step of
+    ``tokens`` at ``pos``, which rewrites that slot as the step did);
+    every cache buffer read once, the SSM's conv and state written once,
+    one KV slot a layer written, the fp32 logits written."""
+    from repro_torch.models import decode_step
+    from repro_torch.models.moe import MoE
+
+    B = tokens.shape[0]
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    tok = getattr(model.embed, "tok", None)
+    if tok is not None:
+        nbytes -= (tok.shape[0] - B) * tok.shape[1] * tok.element_size()
+    hooks, unused = [], []
+
+    def routed(mod, args):
+        logits = args[0].float() @ mod.router
+        ids = torch.sort(logits, dim=-1, descending=True, stable=True)[1]
+        hit = torch.unique(ids[..., :cfg.experts_per_token]).numel()
+        per = sum(w[0].numel() * w.element_size()
+                  for w in (mod.we_gate, mod.we_up, mod.we_down))
+        unused.append((cfg.num_experts - hit) * per)
+
+    for mod in model.modules():
+        if isinstance(mod, MoE):
+            hooks.append(mod.register_forward_pre_hook(routed))
+    try:
+        decode_step(cfg, model, cache, tokens, pos)
+    finally:
+        for h in hooks:
+            h.remove()
+    nbytes -= sum(unused)
+    for key, buf in cache.items():
+        size = buf.numel() * buf.element_size()
+        nbytes += 2 * size if key in ("conv", "state") else \
+            size + size // buf.shape[2]
+    nbytes += B * cfg.vocab_size * 4
+    return dict(bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                bound_by="bytes", experts_unused_bytes=sum(unused))
+
+
+def eager_vs_graph(cfg, model, cache, toks, start: int, max_len: int
+                   ) -> tuple:
+    """Teacher-forced decode of ``toks`` ((B, T), at positions start ..
+    start+T-1) from the prefilled ``cache``, through eager ``decode_step``
+    (an int position) on ``cache`` and through a ``DecodeGraph`` whose
+    cache is a copy of it, in turns (which goes first alternates a step).
+    Every step's graph logits must equal the eager ones, bitwise or within
+    one bf16 ulp of the step's largest |logit|.  Returns (eager logits (T,
+    B, V), graph logits, record: host ms to a synchronize and CUDA-event ms
+    of each path a step, the graph's build and capture ms, the kernels of
+    one eager step and of one replay, the step's bytes bound)."""
+    from repro_torch.models import decode_step
+    from repro_torch.serve import DecodeGraph
+
+    B, T = toks.shape
+    dev = toks.device
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    graph = DecodeGraph(cfg, model, B, max_len, dtype=torch.float32
+                        if cfg.param_dtype == "float32" else torch.bfloat16,
+                        device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    for key, buf in cache.items():
+        graph.cache[key].copy_(buf)
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    host = {"eager": [], "graph": []}
+    event = {"eager": [], "graph": []}
+    out = {"eager": [], "graph": []}
+    for i in range(T):
+        tok = toks[:, i:i + 1]
+        for path in (("eager", "graph") if i % 2 == 0 else ("graph", "eager")):
+            t0 = time.perf_counter()
+            ev0.record()
+            if path == "eager":
+                logits, _ = decode_step(cfg, model, cache, tok, start + i)
+            else:
+                logits = graph(tok, start + i)
+            ev1.record()
+            torch.cuda.synchronize()
+            host[path].append((time.perf_counter() - t0) * 1e3)
+            event[path].append(ev0.elapsed_time(ev1))
+            out[path].append(logits.clone())
+    eager, graphed = torch.stack(out["eager"]), torch.stack(out["graph"])
+    bitwise = bool(torch.equal(eager, graphed))
+    diffs, tols = [], []
+    for e, g in zip(eager, graphed):
+        diffs.append(float((g - e).abs().max()))
+        tols.append(bf16_ulp(float(e.abs().max())))
+        if not (torch.isfinite(e).all() and torch.isfinite(g).all()):
+            raise AssertionError(f"{cfg.name}: non-finite decode logits")
+        if diffs[-1] > tols[-1]:
+            raise AssertionError(f"{cfg.name}: the graph's logits differ "
+                                 f"from eager decode_step's by {diffs[-1]}, "
+                                 f"over one bf16 ulp ({tols[-1]})")
+    last = toks[:, -1:]
+    bound = decode_bound(cfg, model, cache, last, start + T - 1)
+    eager_prof = device_profile(
+        lambda: decode_step(cfg, model, cache, last, start + T - 1))
+    graph_prof = device_profile(lambda: graph(last, start + T - 1))
+    rec = dict(arch=cfg.name, batch=B, start=start, steps=T, max_len=max_len,
+               build_ms=build_s * 1e3, capture_ms=graph.capture_s * 1e3,
+               eager_ms=spread([t / 1e3 for t in host["eager"]]),
+               graph_ms=spread([t / 1e3 for t in host["graph"]]),
+               eager_event_ms=spread([t / 1e3 for t in event["eager"]]),
+               graph_event_ms=spread([t / 1e3 for t in event["graph"]]),
+               eager_ms_each=host["eager"], graph_ms_each=host["graph"],
+               bitwise=bitwise, max_abs_diff=max(diffs),
+               ulp_tol=min(tols),
+               eager_profile=eager_prof, graph_profile=graph_prof, **bound)
+    log(f"  {cfg.name} decode B = {B} at {start}..{start + T - 1}: eager "
+        f"median {rec['eager_ms']['median']:.2f} ms a step (events "
+        f"{rec['eager_event_ms']['median']:.2f}), graph "
+        f"{rec['graph_ms']['median']:.2f} ms (events "
+        f"{rec['graph_event_ms']['median']:.2f}); bound "
+        f"{bound['bound_ms']:.3f} ms; build {rec['build_ms']:.1f} ms, "
+        f"capture {rec['capture_ms']:.1f} ms; logits "
+        f"{'bitwise equal' if bitwise else 'within %g' % max(diffs)} "
+        f"(1 bf16 ulp >= {min(tols):g}); kernels a step: eager "
+        f"{eager_prof['kernels']}, replay {graph_prof['kernels']} (device "
+        f"busy {graph_prof['device_busy_ms']:.2f} of "
+        f"{graph_prof['device_span_ms']:.2f} ms)")
+    del graph
+    return eager, graphed, rec
+
+
+def graph_phase(seed: int) -> dict:
+    """Phase 6b' (see the module docstring): eager decode against the
+    captured graph at olmoe-1b-7b and zamba2-7b's full width in bf16, then
+    both paths held to the parallel forward with fp32 weights, one model
+    on the card at a time; then the graph against eager at every causal
+    smoke config."""
+    from repro_torch.configs import get_config
+
+    dev = torch.device(DEVICE, torch.cuda.current_device())
+    recs = []
+    for arch in GRAPH_ARCHS:
+        cfg = get_config(arch)
+        rec = graph_cell(cfg, seed, dev)
+        log(f"    bf16: teacher-forced logits within "
+            f"{rec['forward']['logit_max_abs_err']['eager']:.4f} of the "
+            f"forward's (largest {rec['forward']['logit_max_abs']:.3f}; "
+            f"recorded, not gated)")
+        rec["fp32"] = graph_cell(dataclasses.replace(
+            cfg, param_dtype="float32", compute_dtype="float32"), seed, dev,
+            tol=FP32_LOGIT_TOL)
+        gate = rec["fp32"]["forward"]
+        log(f"    fp32: teacher-forced logits within "
+            f"{gate['logit_max_abs_err']['eager']:.2e} (eager) and "
+            f"{gate['logit_max_abs_err']['graph']:.2e} (graph) of the "
+            f"forward's (largest {gate['logit_max_abs']:.3f}, gate "
+            f"{FP32_LOGIT_TOL} of it; argmax equal "
+            f"{gate['argmax_equal']['eager']:.2f})")
+        recs.append(rec)
+    fresh_peak()
+    return dict(full=recs, smoke=smoke_graphs(seed))
+
+
+def graph_cell(cfg, seed: int, dev, tol=None) -> dict:
+    """One cell of 6b': ``cfg``'s model from ``seed``, B = 4 prompts of
+    ``GRAPH_PROMPT`` tokens prefilled, then ``eager_vs_graph``; both paths
+    against the parallel forward (``forward_gap``, gated with ``tol``).
+    The MoE's prefill and forward have room for every pair."""
+    from repro_torch.models import init_cache, init_params, prefill
+
+    B, S, T = GRAPH_BATCH, GRAPH_PROMPT, LM_DECODE
+    dtype = torch.float32 if cfg.param_dtype == "float32" else torch.bfloat16
+    base = fresh_peak()
+    t0 = time.perf_counter()
+    model = init_params(cfg, seed, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed + 8)
+    toks = torch.randint(0, cfg.vocab_size, (B, S + T), device=dev,
+                         generator=gen)
+    cache = init_cache(cfg, B, S + T, dtype=dtype, device=dev)
+    with room_for_every_pair(model):
+        t0 = time.perf_counter()
+        first, _ = prefill(cfg, model, {"tokens": toks[:, :S]}, cache)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        want = forward_logits(cfg, model, {"tokens": toks}, S)
+    eager, graphed, rec = eager_vs_graph(cfg, model, cache, toks[:, S:],
+                                         S, S + T)
+    rec.update(family=cfg.family, params=cfg.param_count(),
+               dtype=cfg.param_dtype, init_s=init_s,
+               prefill_ms=prefill_s * 1e3,
+               forward=forward_gap(cfg, want, first, eager, graphed, tol=tol),
+               peak_gib=(torch.cuda.max_memory_allocated() - base) / 2**30,
+               base_gib=base / 2**30)
+    del model, cache, eager, graphed, want, first
+    fresh_peak()
+    return rec
+
+
+def smoke_graphs(seed: int) -> list:
+    """Every causal smoke config (each family: dense, moe, ssm, hybrid,
+    vlm) in bf16, captured and replayed on the card: B = 2, prompts of
+    ``SMOKE_PROMPT`` tokens (and the vlm's patch embeddings), 16 steps,
+    the graph held to eager ``decode_step`` as in 6b."""
+    from repro_torch.configs import ARCH_IDS, get_smoke_config
+    from repro_torch.models import init_cache, init_params, prefill
+
+    dev = torch.device(DEVICE, torch.cuda.current_device())
+    B, S, T = 2, SMOKE_PROMPT, LM_DECODE
+    recs = []
+    for arch in ARCH_IDS:
+        cfg = dataclasses.replace(get_smoke_config(arch),
+                                  param_dtype="bfloat16",
+                                  compute_dtype="bfloat16")
+        if not cfg.causal:
+            continue
+        model = init_params(cfg, seed, device=dev)
+        gen = torch.Generator(device=DEVICE)
+        gen.manual_seed(seed + 9)
+        toks = torch.randint(0, cfg.vocab_size, (B, S + T), device=dev,
+                             generator=gen)
+        batch = {"tokens": toks[:, :S]}
+        if cfg.frontend == "patch_embed":
+            batch["patch_embeds"] = torch.randn(
+                (B, cfg.num_frontend_tokens, cfg.d_model), device=dev,
+                generator=gen)
+        cache = init_cache(cfg, B, S + T, dtype=torch.bfloat16, device=dev)
+        prefill(cfg, model, batch, cache)
+        _, _, rec = eager_vs_graph(cfg, model, cache, toks[:, S:], S, S + T)
+        rec.update(family=cfg.family)
+        recs.append(rec)
+        del model, cache
+    return recs
 
 
 # -- phase 7: serving and training with a host failure ---------------------
@@ -1364,7 +1724,7 @@ def serve_phase(seed: int, cfg, model) -> dict:
     from unittest import mock
 
     from repro_torch.models import embed_inputs, forward_hidden
-    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.serve import DecodeGraph, Request, ServeEngine
     from repro_torch.serve import engine as engmod
 
     dev = torch.device(DEVICE, torch.cuda.current_device())
@@ -1372,28 +1732,61 @@ def serve_phase(seed: int, cfg, model) -> dict:
     reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, n).tolist(),
                     max_new_tokens=SERVE_NEW, temperature=temp, rid=i)
             for i, (n, temp) in enumerate(SERVE_REQUESTS)]
+    steps = sum(max(r.max_new_tokens for r in reqs[c:c + SERVE_SLOTS]) - 1
+                for c in range(0, len(reqs), SERVE_SLOTS))
     base = fresh_peak()
-    runs = []
-    for _ in range(2):                  # the second engine: the same seed
+    reserved_base = torch.cuda.memory_reserved()
+    runs = {}
+    # the first engine (capturing its graphs), the same engine again with
+    # its sampler reseeded (its graphs and caches reused), then a second
+    # engine with the same seed
+    for run in ("cold", "warm", "second"):
+        if run == "warm":
+            eng.gen.manual_seed(seed)
+        else:
+            eng = ServeEngine(cfg, model, slots=SERVE_SLOTS,
+                              max_len=SERVE_MAX_LEN, seed=seed, device=dev)
         prefill_t = TimedCalls(engmod.prefill)
-        decode_t = TimedCalls(engmod.decode_step)
-        eng = ServeEngine(cfg, model, slots=SERVE_SLOTS,
-                          max_len=SERVE_MAX_LEN, seed=seed, device=dev)
+        replay_t = TimedCalls(DecodeGraph.__call__)
+        build_t = TimedCalls(DecodeGraph.__init__)
         with mock.patch.object(engmod, "prefill", prefill_t), \
-                mock.patch.object(engmod, "decode_step", decode_t):
+                mock.patch.object(DecodeGraph, "__call__",
+                                  lambda self, *a: replay_t(self, *a)), \
+                mock.patch.object(DecodeGraph, "__init__",
+                                  lambda self, *a, **k: build_t(self, *a,
+                                                                **k)):
             t0 = time.perf_counter()
             outs = eng.generate(reqs)
             wall = time.perf_counter() - t0
-        runs.append((outs, wall, prefill_t.seconds, decode_t.seconds))
-    outs, wall, prefill_s, decode_s = runs[0]
+        if type(eng.decoder) is not DecodeGraph \
+                or eng.decoder.tokens.shape != (SERVE_SLOTS, 1) \
+                or len(build_t.seconds) != (run != "warm") \
+                or len(replay_t.seconds) != steps:
+            raise AssertionError(f"{run}: {len(replay_t.seconds)} graph "
+                                 f"replays for {steps} decode steps, "
+                                 f"{len(build_t.seconds)} graphs built, "
+                                 f"decoder {eng.decoder}")
+        runs[run] = dict(outs=outs, wall=wall, prefill_s=prefill_t.seconds,
+                         decode_s=replay_t.seconds, build_s=build_t.seconds,
+                         capture_ms=eng.decoder.capture_s * 1e3,
+                         reserved=torch.cuda.memory_reserved())
+    outs, wall = runs["cold"]["outs"], runs["cold"]["wall"]
     if [o.rid for o in outs] != [r.rid for r in reqs] or any(
             len(o.tokens) != r.max_new_tokens
             or not all(0 <= t < cfg.vocab_size for t in o.tokens)
             for o, r in zip(outs, reqs)):
         raise AssertionError("malformed completions")
-    if [o.tokens for o in runs[1][0]] != [o.tokens for o in outs]:
-        raise AssertionError("a second engine with the same seed drew "
-                             "other tokens")
+    for run in ("warm", "second"):
+        if [o.tokens for o in runs[run]["outs"]] != [o.tokens for o in outs]:
+            raise AssertionError(f"the {run} run drew other tokens than "
+                                 f"the first")
+    # one replay: kernels and where the device time goes
+    full = eng.decoder
+    replay_prof = device_profile(lambda: full(full.tokens.clone(),
+                                              SERVE_MAX_LEN - 1))
+    bound = decode_bound(cfg, model, full.cache, full.tokens,
+                         SERVE_MAX_LEN - 1)
+    del eng, full
     # each greedy token against the parallel forward over the same padded
     # sequence (the chunk's left padding, the tokens fed before it)
     worst = 0.0
@@ -1422,25 +1815,46 @@ def serve_phase(seed: int, cfg, model) -> dict:
                                          f"logit, over {LM_LOGIT_TOL} x {scale}")
                 del h, want
     n_tok = sum(len(o.tokens) for o in outs)
+    warm = runs["warm"]
     rec = dict(arch=cfg.name, slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
                requests=[dict(rid=r.rid, prompt=len(r.prompt),
                               temperature=r.temperature) for r in reqs],
                new_tokens=SERVE_NEW, tokens=n_tok, wall_s=wall,
                tokens_per_s=n_tok / wall,
-               prefill_ms=[t * 1e3 for t in prefill_s],
-               decode_ms=spread(decode_s),
-               second_engine_wall_s=runs[1][1],
+               prefill_ms=[t * 1e3 for t in runs["cold"]["prefill_s"]],
+               decode_ms=spread(runs["cold"]["decode_s"]),
+               graph_build_ms=[t * 1e3 for t in runs["cold"]["build_s"]],
+               capture_ms=runs["cold"]["capture_ms"],
+               warm_wall_s=warm["wall"], tokens_per_s_warm=n_tok / warm["wall"],
+               prefill_ms_warm=[t * 1e3 for t in warm["prefill_s"]],
+               decode_ms_warm=spread(warm["decode_s"]),
+               second_engine_wall_s=runs["second"]["wall"],
+               replay_profile=replay_prof, decode_bound=bound,
                greedy_worst_gap=worst, logit_tol=LM_LOGIT_TOL,
                peak_gib=(torch.cuda.max_memory_allocated() - base) / 2**30,
-               base_gib=base / 2**30)
+               base_gib=base / 2**30,
+               reserved_gib={run: r["reserved"] / 2**30
+                             for run, r in runs.items()},
+               reserved_base_gib=reserved_base / 2**30)
     log(f"  serve {cfg.name}: {len(reqs)} requests over {SERVE_SLOTS} slots, "
-        f"{n_tok} tokens in {wall:.2f} s ({rec['tokens_per_s']:.1f} tokens/s); "
-        f"prefill " + ", ".join(f"{t:.1f}" for t in rec["prefill_ms"])
-        + f" ms a chunk; decode median {rec['decode_ms']['median']:.2f} ms a "
-        f"step ({rec['decode_ms']['min']:.1f}-{rec['decode_ms']['max']:.1f}); "
+        f"{n_tok} tokens in {wall:.2f} s ({rec['tokens_per_s']:.1f} tokens/s, "
+        f"graphs built in " + ", ".join(f"{t:.0f}" for t in
+                                        rec["graph_build_ms"])
+        + f" ms); reused {warm['wall']:.2f} s "
+        f"({rec['tokens_per_s_warm']:.1f} tokens/s); prefill "
+        + ", ".join(f"{t:.1f}" for t in rec["prefill_ms"])
+        + f" ms a chunk; decode (a replay) median "
+        f"{rec['decode_ms']['median']:.2f} ms a step "
+        f"({rec['decode_ms']['min']:.1f}-{rec['decode_ms']['max']:.1f}), "
+        f"reused {rec['decode_ms_warm']['median']:.2f}; "
+        f"{replay_prof['kernels']} kernels a replay at B = {SERVE_SLOTS} "
+        f"(bound {bound['bound_ms']:.3f} ms); "
         f"greedy tokens within {worst:.4f} of the forward's largest logit; "
         f"sampled tokens repeat; peak {rec['peak_gib']:.2f} GiB above "
-        f"{rec['base_gib']:.2f} GiB")
+        f"{rec['base_gib']:.2f} GiB; reserved {rec['reserved_base_gib']:.2f} "
+        f"GiB before, " + ", ".join(f"{v:.2f}" for v in
+                                    rec["reserved_gib"].values())
+        + " GiB after each run")
     return rec
 
 
@@ -2115,6 +2529,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     serve_rec = serve_phase(args.seed, cfg, model)
     del model
+    t1 = time.perf_counter()
+    log(f"the captured decode step at {', '.join(GRAPH_ARCHS)} (full width):")
+    results["ft"]["lm_graphs"] = graph_phase(args.seed)
+    results["lm_graphs_s"] = time.perf_counter() - t1
     train_rec, kernels[0]["train"] = train_phase(args.seed)
     results["train"] = dict(serve=serve_rec, train=train_rec)
     results["train_s"] = time.perf_counter() - t0

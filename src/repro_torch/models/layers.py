@@ -312,7 +312,8 @@ class Attention(nn.Module):
         (hands back k, v when ``cache_index`` is given).  With a cache
         (k_cache, v_cache) of shape (B, S_max, KV, hd): k and v are written
         into it at ``cache_index`` (in place) and attention runs over all
-        of its slots, masked by position."""
+        of its slots, masked by position.  ``cache_index`` is an int, or a
+        0-d integer tensor on the cache's device."""
         cfg = self.cfg
         c = dt(cfg)
         q, k, v = self.qkv(x, positions)
@@ -324,10 +325,21 @@ class Attention(nn.Module):
         new_cache = None
         if cache is not None:
             kc, vc = cache
-            at = int(cache_index)
             S = k.shape[1]
-            kc[:, at:at + S] = k.to(kc.dtype)
-            vc[:, at:at + S] = v.to(vc.dtype)
+            if isinstance(cache_index, torch.Tensor):
+                # never read on the host: a captured decode step replays it
+                at = replicate_like(kc, cache_index.long()
+                                    + torch.arange(S, device=kc.device))
+                kc[:, at] = k.to(kc.dtype)
+                vc[:, at] = v.to(vc.dtype)
+            else:
+                # a slice: the one write DTensor shards in place on every
+                # torch the port runs on (2.11 has no in-place rule for
+                # index_put_, index_copy_ or scatter_), which the dry run's
+                # sharded prefill and decode cells need
+                at = int(cache_index)
+                kc[:, at:at + S] = k.to(kc.dtype)
+                vc[:, at:at + S] = v.to(vc.dtype)
             new_cache = (kc, vc)
             kv_pos = torch.arange(kc.shape[1], dtype=torch.int32,
                                   device=positions.device)

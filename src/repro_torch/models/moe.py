@@ -8,11 +8,13 @@ buffer.  A row's expert holds ceil(S*K/E * capacity_factor) slots; pairs
 beyond that drop (GShard semantics).  The reference writes a dropped pair
 to the out-of-range slot E*cap with ``mode="drop"``; torch has no drop
 mode, so the port's buffer has one extra dump row at E*cap that takes the
-dropped pairs and is cut off before the experts run.
+dropped pairs and is cut off before the experts run.  The combine adds
+each token's contributions in a fixed order (see ``_combine``), so a step
+gives the same bits on every run, on the card as on the CPU.
 
 With DTensor inputs (``distributed``), the routing and the dispatch
 scatter, and the combine, run on each device's rows (``batch_local``:
-``sort``, ``searchsorted``, the indexed scatter and ``scatter_add_`` are
+``sort``, ``searchsorted``, the indexed scatter and the gathers are
 row-local, and not all of them have DTensor sharding rules); the router
 and the experts run through DTensor's sharding propagation, the experts
 sharded over (pod, model) between the reference's two all-to-all hints.
@@ -87,8 +89,8 @@ class MoE(nn.Module):
 def _dispatch(x: torch.Tensor, logits: torch.Tensor, K: int, cap: int,
               dtype: torch.dtype):
     """Routing and the row-local scatter of each row's tokens into its
-    experts' buffers: (xd (B, E, cap, d), (slot, keep, t_sorted,
-    g_sorted))."""
+    experts' buffers: (xd (B, E, cap, d), (slot, keep, gate)), the last
+    three (B, S*K) in :func:`_combine`'s order."""
     B, S, d = x.shape
     E = logits.shape[-1]
     top_vals, top_ids = torch.sort(logits, dim=-1, descending=True,
@@ -116,21 +118,32 @@ def _dispatch(x: torch.Tensor, logits: torch.Tensor, K: int, cap: int,
     rows = torch.arange(B, device=x.device)[:, None].expand(B, S * K)
     buf[rows, slot] = gathered
     xd = buf[:, :E * cap].reshape(B, E, cap, d)
-    return xd, (slot, keep, t_sorted, g_sorted)
+    # the pairs back in token order, each token's K in its experts' id
+    # order: the order in which _combine adds a token's contributions
+    by_token = torch.argsort(t_sorted * E + e_sorted, dim=1)
+    return xd, tuple(torch.gather(a, 1, by_token)
+                     for a in (slot, keep, g_sorted))
 
 
 def _combine(ye: torch.Tensor, slot: torch.Tensor, keep: torch.Tensor,
-             t_sorted: torch.Tensor, g_sorted: torch.Tensor,
-             S: int) -> torch.Tensor:
-    """The weighted scatter-add of each row's expert outputs (B, E, cap,
-    d) back to its tokens: (B, S, d) in fp32."""
+             gate: torch.Tensor, S: int) -> torch.Tensor:
+    """The weighted sum of each row's expert outputs (B, E, cap, d) back
+    into its tokens: (B, S, d) in fp32.  ``slot``, ``keep`` and ``gate``
+    ((B, S*K)) hold each token's K pairs together, in its experts' id
+    order, and a token's contributions are added to zero one at a time in
+    that order: the order of a sequential scatter-add over the
+    expert-sorted pairs (the CPU's ``scatter_add_``, bit for bit).  CUDA's
+    ``scatter_add_`` adds them with atomics, in an order, and so with a
+    rounding, that varies from run to run."""
     B, E, cap, d = ye.shape
-    ye = ye.reshape(B, E * cap, d)
+    K = slot.shape[1] // S
     contrib = torch.gather(
-        ye, 1, torch.clamp(slot, max=E * cap - 1)[..., None].expand(-1, -1, d))
+        ye.reshape(B, E * cap, d), 1,
+        torch.clamp(slot, max=E * cap - 1)[..., None].expand(-1, -1, d))
     contrib = torch.where(keep[..., None], contrib,
                           torch.zeros_like(contrib)).float()
-    contrib = contrib * g_sorted[..., None]
+    contrib = (contrib * gate[..., None]).view(B, S, K, d)
     y = torch.zeros((B, S, d), dtype=torch.float32, device=ye.device)
-    y.scatter_add_(1, t_sorted[..., None].expand(-1, -1, d), contrib)
+    for k in range(K):
+        y += contrib[:, :, k]
     return y

@@ -333,10 +333,16 @@ def prefill(cfg: ModelConfig, model: Transformer, batch: Dict[str, Any],
 def decode_step(cfg: ModelConfig, model: Transformer,
                 cache: Dict[str, torch.Tensor], tokens: torch.Tensor,
                 pos: Index) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """One token for every sequence in the batch.  tokens: (B, 1)."""
+    """One token for every sequence in the batch.  tokens: (B, 1); ``pos``
+    an int or a 0-d int32 tensor on the model's device.  Given a tensor,
+    the step reads nothing on the host, so it can be captured once and
+    replayed at every position (``serve.graph.DecodeGraph``); given an int,
+    the cache is written through a slice, which DTensor caches (the dry
+    run) need."""
     h = model.embed.tokens(tokens)
-    positions = torch.tensor([int(pos)], dtype=torch.int32, device=h.device)
-    h, cache = forward_hidden(cfg, model, h, positions=positions, cache=cache,
-                              cache_index=pos)
+    positions = torch.as_tensor(pos, dtype=torch.int32,
+                                device=h.device).reshape(1)
+    h, cache = forward_hidden(cfg, model, h, positions=positions,
+                              cache=cache, cache_index=pos)
     h = model.final_norm(h)
     return logits_last(cfg, model.embed, h), cache
