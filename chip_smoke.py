@@ -184,10 +184,31 @@ nonzero:
       ``torch.use_deterministic_algorithms``); the kernel's launch counter,
       zeroed first, must rise and equal the products; afterwards the kernel
       is held to the plain version at every product shape of the phase on
-      column windows, as in 6a.  Records step times, tokens/s, save, plan,
-      execute and restore times (host clock ending in a synchronize),
-      kernel launches and ms (CUDA events), and peak memory above the
-      phase's baseline.
+      column windows, as in 6a.  Every step of both runs goes through the
+      loop's one ``train.TrainGraph``: the first eagerly (the capture's
+      warm-up), every later one as a replay of the step captured as a
+      CUDA graph (released before each save and before the regeneration
+      and restore, captured again at the next step); the run must build
+      one graph and call it once a step.  Records every call's time (and
+      the replays', the eager first calls' and the capture calls' apart),
+      each run's stepping time beside an eager loop's at the gates' step
+      times, what a capture costs over a replay and a replay saves over
+      an eager step, save, plan, execute and restore times (host clock
+      ending in a synchronize), kernel launches and ms (CUDA events), and
+      peak memory above the phase's baseline.  Then, at fresh weights
+      from ``--seed`` and the same batches, 3 steps each eagerly with the
+      plain fp32 products (the selection of ``layers.fp32_product``
+      patched to refuse the card version), eagerly with the products on
+      the tensor cores (``train.EagerTrainStep``) and through a
+      ``TrainGraph`` (eager, capture, replay): the graph's losses and
+      grad norms must be the eager step's within rtol 1e-5 (whether
+      bitwise is recorded); the tensor-core step's first loss within 1/4
+      bf16 ulp of the fp32 products' (the CPU test's loss gate,
+      ``tests/test_torch_bf16.py``) and its losses and grad norms within
+      rtol 1e-3 of theirs at every step; step ms, tokens/s, peak and
+      reserved GiB, the graph's capture ms, and one more step of each
+      profiled (``step_profile``: device ms by category, kernels, the
+      device's idle share of the call) are recorded.
 
 8. Sharding (``repro_torch.distributed``, ``repro_torch.launch``):
 
@@ -225,6 +246,7 @@ import argparse
 import collections
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -306,6 +328,10 @@ TRAIN_LOOP = dict(steps=8, ckpt_every=4, n_micro=2, ec_n=8, ec_k=4, ec_d=6,
                   blocks_per_host=16)
 TRAIN_FAIL = {5: 3}                       # host 3 fails after step 5
 TRAIN_RTOL = 1e-5                         # replayed losses, the reference's
+GATE_STEPS = 3                            # graph/eager, tensor cores/fp32
+PRODUCT_ULPS = 0.25                       # tests/test_torch_bf16.py's loss
+PRODUCT_RTOL = 1e-3                       # every loss and grad norm (seen:
+                                          # 8.2e-6, grad norms to 2.4e-4)
 # phase 8: sharding.  8a: olmo-1b's train step on a 1x1 mesh (phase 7b's
 # model, batch and microbatches); 8b: the dry run of yi-6b x train_4k at
 # 16x16 and 2x16x16 on the host (the other cells, kimi-k2's among them, by
@@ -367,7 +393,10 @@ def int8_gemm_ms(a: torch.Tensor, n: int, gen) -> float:
 class ShapeLog:
     """A GF matmul that records the (M, K, N) of every call, brackets the
     call with CUDA events on the current stream, and passes it on unchanged
-    (here: to the port's dispatcher, i.e. the kernel)."""
+    (here: to the port's dispatcher, i.e. the kernel).  The output's memory
+    is taken from the allocator before the start event and freed at once,
+    so the wrapper's own allocation reuses it and the events hold the
+    launch, not the allocator mapping new memory."""
 
     def __init__(self, matmul):
         self.matmul = matmul
@@ -377,6 +406,7 @@ class ShapeLog:
     def __call__(self, a, b):
         shape = (a.shape[0], a.shape[1], b.shape[1])
         self.shapes[shape] += 1
+        torch.empty(shape[0] * shape[2], dtype=torch.uint8, device=a.device)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -1457,6 +1487,173 @@ def device_profile(fn) -> dict:
                      for n, (c, ms) in top])
 
 
+GEMM_OPS = {"aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm"}
+COPY_OPS = {"aten::copy_", "aten::_to_copy", "aten::clone", "aten::cat",
+            "aten::stack", "aten::contiguous"}
+REGIONS = {"chunked_attention": "attention", "chunked_softmax_xent": "loss",
+           "_adamw_update": "optimizer", "_adafactor_update": "optimizer",
+           "global_norm": "optimizer"}
+CATEGORIES = ("bf16 GEMMs", "fp32 GEMMs", "attention (elementwise and "
+              "reductions)", "loss", "optimizer", "casts and copies", "other")
+
+
+@contextlib.contextmanager
+def labelled_regions():
+    """Each function named in ``REGIONS``, wherever a ``repro_torch`` module
+    binds it, run inside a ``torch.profiler.record_function`` range named
+    ``region:<its region>``, so ``step_profile`` can tell the attention,
+    the loss and the optimizer apart."""
+    def labelled(fn, region):
+        @functools.wraps(fn)
+        def run(*args, **kwargs):
+            with torch.profiler.record_function("region:" + region):
+                return fn(*args, **kwargs)
+        return run
+
+    patched = []
+    for name, mod in list(sys.modules.items()):
+        if not name.startswith("repro_torch"):
+            continue
+        for attr, region in REGIONS.items():
+            fn = mod.__dict__.get(attr)
+            if callable(fn):
+                patched.append((mod, attr, fn))
+                setattr(mod, attr, labelled(fn, region))
+    try:
+        yield
+    finally:
+        for mod, attr, fn in patched:
+            setattr(mod, attr, fn)
+
+
+def _region(op):
+    """The region of ``op``'s innermost ``region:`` range, or None."""
+    while op is not None:
+        if op.name.startswith("region:"):
+            region = op.name[len("region:"):]
+            return ("attention (elementwise and reductions)"
+                    if region == "attention" else region)
+        op = op.cpu_parent
+    return None
+
+
+def _category(op, fwd_ops: dict, dtypes: dict) -> str:
+    """The category of a kernel launched by the CPU op ``op``: a GEMM by
+    its first input's dtype, a cast or copy, else the region of the op's
+    innermost ``region:`` range; in the backward, outside such a range,
+    the region of the forward op that made the autograd node being
+    evaluated (same sequence number and thread), so a remat's recomputed
+    forward outside the ranges counts where that node does."""
+    if op.name in GEMM_OPS:
+        dtype = (dtypes.get(op.id) or [""])[0]
+        return ("bf16 GEMMs" if "BFloat16" in dtype else "fp32 GEMMs"
+                if dtype == "float" else f"GEMMs ({dtype})")
+    if op.name in COPY_OPS:
+        return "casts and copies"
+    e = op
+    while e is not None:
+        if e.name.startswith("region:"):
+            return _region(e)
+        if e.name.startswith("autograd::engine::evaluate_function"):
+            fwd = fwd_ops.get((e.sequence_nr, e.fwd_thread))
+            return (fwd is not None and _region(fwd)) or "other"
+        e = e.cpu_parent
+    return "other"
+
+
+def step_profile(fn, like=None) -> dict:
+    """What one call of ``fn`` ran on the card (``torch.profiler``, CPU and
+    CUDA activities, input dtypes recorded, ``labelled_regions`` on): the
+    kernels (and copies and sets) and their device ms by category
+    (``CATEGORIES``; each device event by the CPU op that launched it), the
+    device's busy ms (the union of its events), the span from the first
+    start to the last end, the call's host ms to a synchronize, and the
+    idle shares of the span and of the call.  A graph's replay launches
+    no op: with ``like`` (the record of an eager call of the same step),
+    each of the replay's device events takes the category of ``like``'s
+    next event of the same name, in order (looked for among the next 64;
+    an event with none is ``unattributed``).  ``order`` (the events' names
+    and categories) is for ``like`` and is left out of a JSON record."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with labelled_regions(), torch.profiler.profile(
+            activities=acts, record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    cuda = torch.autograd.DeviceType.CUDA
+    kineto = prof.profiler.kineto_results.events()
+    ops = {e.id: e for e in prof.events() if e.device_type != cuda}
+    dtypes = {k.correlation_id(): k.dtypes() for k in kineto
+              if k.device_type() != cuda}
+    fwd_ops = {(e.sequence_nr, e.thread): e for e in ops.values()
+               if e.sequence_nr >= 0 and "Backward" not in e.name
+               and not e.name.startswith("autograd::")}
+    # kineto's own events: a device event's linked correlation id is the
+    # id of the CPU op that launched it, and a CPU op's input dtypes are
+    # there (torch 2.11's FunctionEvents carry neither)
+    # (the ``region:`` ranges also appear on the device's timeline, as
+    # spans around their kernels: left out)
+    dev = sorted((k for k in kineto if k.device_type() == cuda
+                  and not k.name().startswith("region:")),
+                 key=lambda k: k.start_ns())
+    names = [k.name() for k in dev]
+    if like is not None:
+        cats, j = [], 0
+        for name in names:
+            k = next((k for k in range(j, min(j + 64, len(like["order"])))
+                      if like["order"][k][0] == name), None)
+            cats.append("unattributed" if k is None else like["order"][k][1])
+            j = j if k is None else k + 1
+    else:
+        cats = []
+        for k, name in zip(dev, names):
+            op = ops.get(k.linked_correlation_id())
+            cats.append("casts and copies" if name.startswith(
+                ("Memcpy", "Memset")) else "unattributed" if op is None
+                else _category(op, fwd_ops, dtypes))
+    by_cat = collections.defaultdict(lambda: dict(events=0, ms=0.0))
+    top = collections.defaultdict(lambda: collections.defaultdict(float))
+    busy, end = 0, None
+    for k, name, cat in zip(dev, names, cats):
+        start, stop = k.start_ns(), k.start_ns() + k.duration_ns()
+        by_cat[cat]["events"] += 1
+        by_cat[cat]["ms"] += (stop - start) / 1e6
+        top[cat][name[:120]] += (stop - start) / 1e6
+        if end is None or start >= end:
+            busy += stop - start
+            end = stop
+        elif stop > end:
+            busy += stop - end
+            end = stop
+    busy_ms = busy / 1e6
+    span_ms = (end - dev[0].start_ns()) / 1e6 if dev else 0.0
+    for cat, rec in by_cat.items():
+        rec["top"] = [dict(name=n, ms=ms) for n, ms in sorted(
+            top[cat].items(), key=lambda kv: -kv[1])[:3]]
+    kernels = sum(1 for n in names if not n.startswith(("Memcpy", "Memset")))
+    return dict(kernels=kernels, events=len(dev), categories=dict(by_cat),
+                device_busy_ms=busy_ms, device_span_ms=span_ms,
+                wall_ms=wall_ms,
+                idle_share_of_span=1 - busy_ms / span_ms if span_ms else None,
+                idle_share_of_wall=1 - busy_ms / wall_ms,
+                order=list(zip(names, cats)))
+
+
+def profile_line(label: str, prof: dict) -> str:
+    cats = sorted(prof["categories"].items(), key=lambda kv: -kv[1]["ms"])
+    return (f"  {label}: {prof['kernels']} kernels, busy "
+            f"{prof['device_busy_ms']:.1f} of {prof['wall_ms']:.1f} ms "
+            f"(idle {prof['idle_share_of_wall']:.3f} of the profiled call, "
+            f"{prof['idle_share_of_span']:.3f} of the span"
+            + (f", {prof['idle_share_of_step']:.3f} of the unprofiled step"
+               if "idle_share_of_step" in prof else "") + "); "
+            + "; ".join(f"{c} {r['ms']:.1f} ms ({r['events']})"
+                        for c, r in cats))
+
+
 def decode_bound(cfg, model, cache, tokens, pos: int) -> dict:
     """The least time of one decode step over ``cache``: the bytes it must
     move over HBM.  Every parameter read once, but of the token table only
@@ -1944,18 +2141,31 @@ def train_phase(seed: int) -> tuple:
         timings["plan_s"].append(time.perf_counter() - t0)
         return out
 
-    make_step = loopmod.make_train_step
+    class TimedGraph(loopmod.TrainGraph):
+        """Times every call to a synchronize (``seconds``) and keeps what
+        it was (``kinds``): the eager first step, a capture and its
+        replay, or a replay."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.seconds, self.kinds = [], []
+            graphs.append(self)
+
+        def __call__(self, batch):
+            self.kinds.append("replay" if self.graph is not None else
+                              "capture" if self.warm else "eager")
+            t0 = time.perf_counter()
+            out = super().__call__(batch)
+            torch.cuda.synchronize()
+            self.seconds.append(time.perf_counter() - t0)
+            return out
+
+    graphs = []
 
     def run(fail_at):
         TimedCheckpoint.keep = bool(fail_at)
-        steps = []
-
-        def make(*a, **kw):
-            steps.append(TimedCalls(make_step(*a, **kw)))
-            return steps[-1]
-
         with expandable_segments(), \
-                mock.patch.object(loopmod, "make_train_step", make), \
+                mock.patch.object(loopmod, "TrainGraph", TimedGraph), \
                 mock.patch.object(loopmod, "ECCheckpoint", TimedCheckpoint), \
                 mock.patch.object(loopmod, "ErasureCoder", lambda **kw:
                                   ErasureCoder(**kw, matmul=shape_log)), \
@@ -1964,14 +2174,21 @@ def train_phase(seed: int) -> tuple:
                         OptimizerConfig(), LoopConfig(seed=seed, **TRAIN_LOOP),
                         fail_at=fail_at, scheme="ftr", log=lambda s: None,
                         device=dev)
-        return res, steps[0].seconds
+        graph = graphs.pop()
+        if graphs or len(graph.seconds) != res.steps_run:
+            raise AssertionError(f"{len(graph.seconds)} calls of "
+                                 f"{len(graphs) + 1} train graphs for "
+                                 f"{res.steps_run} steps")
+        # the times only: the graph holds the run's model and moments
+        return res, dict(seconds=graph.seconds, kinds=graph.kinds,
+                         capture_s=graph.capture_s)
 
     log(f"  train {cfg.name} ({cfg.param_count()} {cfg.param_dtype} "
         f"parameters, AdamW fp32 moments): batch {TRAIN_DATA['batch']} x "
         f"{TRAIN_DATA['seq_len']}, {TRAIN_LOOP['n_micro']} microbatches")
     base = fresh_peak()
     gf_matmul_cuda.launches = 0
-    plain, plain_steps = run({})
+    plain, plain_graph = run({})
     plain_params = {n: t.cpu() for n, t in
                     plain.final_state["params"].state_dict().items()}
     plain_launches = gf_matmul_cuda.launches
@@ -1979,7 +2196,7 @@ def train_phase(seed: int) -> tuple:
     del plain
     t_plain = dict(timings)
     timings.clear()
-    failed, failed_steps = run(dict(TRAIN_FAIL))
+    failed, failed_graph = run(dict(TRAIN_FAIL))
     peak = torch.cuda.max_memory_allocated() - base
     launches = gf_matmul_cuda.launches
     torch.cuda.synchronize()
@@ -2024,9 +2241,24 @@ def train_phase(seed: int) -> tuple:
         torch.use_deterministic_algorithms(False)
     del model, batch, failed
     fresh_peak()
+    gates = train_gates(seed)
 
     tokens = TRAIN_DATA["batch"] * TRAIN_DATA["seq_len"]
-    step_s = plain_steps + failed_steps
+    runs = (plain_graph, failed_graph)
+    step_s = [t for g in runs for t in g["seconds"]]
+
+    def of_kind(kind):
+        return [t for g in runs for t, k in zip(g["seconds"], g["kinds"])
+                if k == kind]
+
+    # what the graph costs and saves against the eager step of the gates
+    # (tensor-core products, the same shapes, this call): a capture call's
+    # excess over a replay, a replay's saving over an eager step, and the
+    # steps between two releases at which they even out
+    replay_ms = statistics.median(of_kind("replay")) * 1e3
+    eager_ms = gates["tensor_cores"]["step_ms"]["median"]
+    capture_excess_ms = statistics.median(of_kind("capture")) * 1e3 - \
+        replay_ms
     rec = dict(
         arch=cfg.name, source="src/repro/configs/olmo_1b.py:6-10",
         reduced="steps (8), batch (4 x 2048)", params=cfg.param_count(),
@@ -2038,6 +2270,21 @@ def train_phase(seed: int) -> tuple:
         nondeterministic_grads_deterministic_algorithms=differ_det,
         step_ms=spread(step_s), tokens_per_s=tokens / statistics.median(
             step_s),
+        calls=[g["kinds"] for g in runs],
+        replay_ms=spread(of_kind("replay")),
+        capture_call_ms=[t * 1e3 for t in of_kind("capture")],
+        eager_call_ms=[t * 1e3 for t in of_kind("eager")],
+        stepping_s=[sum(g["seconds"]) for g in runs],
+        stepping_tokens_per_s=tokens * len(step_s) / sum(step_s),
+        eager_stepping_s=[(gates["tensor_cores"]["first_call_ms"]
+                           + (len(g["seconds"]) - 1) * eager_ms) / 1e3
+                          for g in runs],
+        capture_ms=[t * 1e3 for g in runs for t in g["capture_s"]],
+        capture_excess_ms=capture_excess_ms,
+        replay_saving_ms=eager_ms - replay_ms,
+        break_even_steps=capture_excess_ms / (eager_ms - replay_ms)
+        if eager_ms > replay_ms else math.inf,
+        gates=gates,
         save_s=t_plain["save_s"] + timings["save_s"],
         plan_s=timings["plan_s"], regen_s=rec_log.wall_s,
         execute_s=rec_log.wall_s - timings["plan_s"][-1],
@@ -2057,9 +2304,22 @@ def train_phase(seed: int) -> tuple:
         f"{'bitwise equal' if params_equal else 'not bitwise equal'}; "
         f"gradients differing between two passes: {differ or 'none'} "
         f"(deterministic algorithms: {differ_det or 'none'})")
-    log(f"  train: step median {rec['step_ms']['median']:.1f} ms "
+    log(f"  train: every call median {rec['step_ms']['median']:.1f} ms "
         f"({rec['step_ms']['min']:.1f}-{rec['step_ms']['max']:.1f}), "
-        f"{rec['tokens_per_s']:.0f} tokens/s; save "
+        f"{rec['tokens_per_s']:.0f} tokens/s; replays median "
+        f"{rec['replay_ms']['median']:.1f} ms (n {rec['replay_ms']['n']}); "
+        "first (eager) calls " + ", ".join(
+            f"{t:.0f}" for t in rec["eager_call_ms"]) + " ms; capture calls "
+        + ", ".join(f"{t:.0f}" for t in rec["capture_call_ms"])
+        + " ms (captures " + ", ".join(f"{t:.0f}" for t in rec["capture_ms"])
+        + " ms); stepping " + ", ".join(
+            f"{t:.3f}" for t in rec["stepping_s"]) + " s a run, "
+        f"{rec['stepping_tokens_per_s']:.0f} tokens/s (eager steps at "
+        f"the gates' times: " + ", ".join(
+            f"{t:.3f}" for t in rec["eager_stepping_s"]) + " s); a capture "
+        f"costs {rec['capture_excess_ms']:.0f} ms over a replay, a replay "
+        f"saves {rec['replay_saving_ms']:.1f} ms over an eager step: even "
+        f"at {rec['break_even_steps']:.1f} steps between releases; save "
         + ", ".join(f"{t:.3f}" for t in rec["save_s"]) + " s; "
         f"{launches} kernel launches taking {rec['kernel_ms']:.3f} ms; peak "
         f"{rec['peak_gib']:.2f} GiB above {rec['base_gib']:.2f} GiB")
@@ -2073,6 +2333,121 @@ def train_phase(seed: int) -> tuple:
         plain_window_ms=total["plain_window_ms"], library_ms=None,
         max_abs_err=0, shapes=shapes)
     return rec, train_kernel
+
+
+def train_gates(seed: int) -> dict:
+    """Phase 7b's step gates (see the module docstring): olmo-1b at fresh
+    weights from ``seed``, ``GATE_STEPS`` steps of phase 7b's batches run
+    three ways: eagerly with the plain fp32 products
+    (``layers.on_tensor_cores`` patched to refuse), eagerly with the
+    tensor-core products (``EagerTrainStep``), and through a
+    ``TrainGraph`` (its first step eager, then a capture and replays);
+    then one more step of each profiled (``step_profile``;
+    the replay's categories by the eager step's order)."""
+    from unittest import mock
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, layers
+    from repro_torch.train import (DataConfig, EagerTrainStep,
+                                   OptimizerConfig, SyntheticLM, TrainGraph,
+                                   init_opt)
+
+    cfg = get_config(TRAIN_ARCH)
+    dev = torch.device(DEVICE, torch.cuda.current_device())
+    opt_cfg = OptimizerConfig()
+    data = SyntheticLM(DataConfig(seed=seed, **TRAIN_DATA), cfg, device=dev)
+    batches = [data.batch_at(i) for i in range(GATE_STEPS + 1)]
+    tokens = TRAIN_DATA["batch"] * TRAIN_DATA["seq_len"]
+
+    def run(cls, like=None):
+        base = fresh_peak()
+        model = init_params(cfg, seed, device=dev)
+        runner = cls(cfg, opt_cfg, model, init_opt(opt_cfg, model,
+                                                   device=dev),
+                     n_micro=TRAIN_LOOP["n_micro"])
+        losses, norms, secs = [], [], []
+        for batch in batches[:GATE_STEPS]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = runner(batch)
+            loss, norm = float(metrics["loss"]), float(metrics["grad_norm"])
+            secs.append(time.perf_counter() - t0)
+            losses.append(loss)
+            norms.append(norm)
+        # a graph's first call is its eager warm-up step and its second
+        # the capture: its steps are the replays after them
+        steps = secs[2:] if cls is TrainGraph else secs[1:]
+        rec = dict(losses=losses, grad_norms=norms,
+                   first_call_ms=secs[0] * 1e3, step_ms=spread(steps),
+                   tokens_per_s=tokens / statistics.median(steps),
+                   peak_gib=(torch.cuda.max_memory_allocated() - base)
+                   / 2**30,
+                   reserved_gib=torch.cuda.memory_reserved() / 2**30,
+                   base_gib=base / 2**30)
+        if cls is TrainGraph:
+            rec.update(capture_call_ms=secs[1] * 1e3,
+                       capture_ms=[t * 1e3 for t in runner.capture_s])
+        rec["profile"] = step_profile(lambda: runner(batches[GATE_STEPS]),
+                                      like=like)
+        # the profiler slows the host, so the idle share that matters is
+        # the busy time's against the unprofiled step
+        rec["profile"]["idle_share_of_step"] = (
+            1 - rec["profile"]["device_busy_ms"] / rec["step_ms"]["median"])
+        runner.release()
+        del runner, model, metrics
+        fresh_peak()
+        return rec
+
+    with mock.patch.object(layers, "on_tensor_cores", lambda *a: False):
+        plain = run(EagerTrainStep)
+    eager = run(EagerTrainStep)
+    graph = run(TrainGraph, like=eager["profile"])
+    for rec in (plain, eager, graph):
+        if not all(map(math.isfinite, rec["losses"] + rec["grad_norms"])):
+            raise AssertionError("a loss or grad norm is not finite")
+    for key in ("losses", "grad_norms"):
+        if not all(abs(a - b) <= TRAIN_RTOL * abs(b)
+                   for a, b in zip(graph[key], eager[key])):
+            raise AssertionError(f"the graph's {key} {graph[key]} differ "
+                                 f"from the eager step's {eager[key]}")
+    gap = abs(eager["losses"][0] - plain["losses"][0])
+    tol = PRODUCT_ULPS * bf16_ulp(abs(plain["losses"][0]))
+    if gap > tol:
+        raise AssertionError(f"the tensor-core loss differs from the fp32 "
+                             f"products' by {gap}, over {tol}")
+    rel = {key: [abs(a - b) / abs(b) for a, b in zip(eager[key], plain[key])]
+           for key in ("losses", "grad_norms")}
+    if max(max(v) for v in rel.values()) > PRODUCT_RTOL:
+        raise AssertionError(f"the tensor-core step's losses and grad norms "
+                             f"differ from the fp32 products' by {rel}, "
+                             f"over {PRODUCT_RTOL} of each")
+    out = dict(plain_products=plain, tensor_cores=eager, graph=graph,
+               graph_bitwise=(graph["losses"] == eager["losses"]
+                              and graph["grad_norms"] == eager["grad_norms"]),
+               product_loss_gap=gap, product_loss_tol=tol,
+               product_rel_gaps=rel)
+    for label, rec in (("eager, fp32 products", plain),
+                       ("eager, tensor cores", eager), ("replay", graph)):
+        log(f"  {label}: step median {rec['step_ms']['median']:.1f} ms, "
+            f"{rec['tokens_per_s']:.0f} tokens/s, losses "
+            + ", ".join(f"{x:.6f}" for x in rec["losses"]) + ", grad norms "
+            + ", ".join(f"{x:.6f}" for x in rec["grad_norms"])
+            + f"; peak {rec['peak_gib']:.2f} GiB, reserved "
+            f"{rec['reserved_gib']:.2f} GiB")
+        log(profile_line(f"  {label} profile", rec["profile"]))
+    log(f"  graph against eager: "
+        f"{'bitwise equal' if out['graph_bitwise'] else 'within rtol'}; "
+        f"tensor-core loss {gap:.3g} from the fp32 products' (gate {tol:g}); "
+        f"relative gaps of the losses "
+        + ", ".join(f"{x:.3g}" for x in rel["losses"]) + " and grad norms "
+        + ", ".join(f"{x:.3g}" for x in rel["grad_norms"])
+        + f" (gate {PRODUCT_RTOL:g}); first (eager) call "
+        f"{graph['first_call_ms']:.0f} ms, capture call "
+        f"{graph['capture_call_ms']:.0f} ms (capture "
+        f"{graph['capture_ms'][0]:.0f} ms)")
+    for rec in (plain, eager, graph):
+        del rec["profile"]["order"]
+    return out
 
 
 def start_dryruns(root: pathlib.Path, out_dir: pathlib.Path) -> list:

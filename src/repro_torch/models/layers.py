@@ -16,8 +16,9 @@ in plain functions on tensors:
 Softmax and logsumexp math is fp32, matmul inputs are ``compute_dtype``.
 Where the reference asks XLA for an fp32 product of ``compute_dtype``
 inputs (``preferred_element_type``), the port upcasts the inputs and
-multiplies in fp32: a product of two bf16 values is exact in fp32, so this
-is the same arithmetic.
+multiplies in fp32 (``fp32_product``): a product of two bf16 values is
+exact in fp32, so this is the same arithmetic; on the card, bf16 values
+multiply on the tensor cores in TF32, which holds them exactly.
 
 The reference's sharding hints stand at its points (``distributed.hints``):
 without an ambient mesh they return their input, so a plain run is what it
@@ -31,6 +32,7 @@ and accumulator are made ``*_like`` a tile.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 from typing import Optional, Tuple, Union
@@ -60,6 +62,86 @@ def dt(cfg: ModelConfig, kind: str = "compute") -> torch.dtype:
 def param(shape, dtype: torch.dtype, device: DeviceLike) -> nn.Parameter:
     """An uninitialised parameter; ``transformer.init_params`` fills it."""
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
+
+
+# ---------------------------------------------------------------------------
+# fp32 products of compute-dtype values
+# ---------------------------------------------------------------------------
+
+def on_tensor_cores(device: torch.device, dtype: torch.dtype) -> bool:
+    """Whether ``fp32_product`` of values of ``dtype`` on ``device`` runs on
+    the tensor cores: bf16 values on a CUDA device.  fp32 values, and every
+    value on the CPU, keep the plain fp32 product."""
+    return device.type == "cuda" and dtype == torch.bfloat16
+
+
+@contextlib.contextmanager
+def _tf32():
+    flags = torch.backends.cuda.matmul
+    was = flags.allow_tf32
+    flags.allow_tf32 = True
+    try:
+        yield
+    finally:
+        flags.allow_tf32 = was
+
+
+def _product(a: torch.Tensor, b: torch.Tensor, eq: Optional[str]
+             ) -> torch.Tensor:
+    return a @ b if eq is None else torch.einsum(eq, a, b)
+
+
+class _TF32Product(torch.autograd.Function):
+    """``_product`` with TF32 allowed in its forward and in its backward (a
+    flag set around a forward does not reach autograd's backward)."""
+
+    @staticmethod
+    def forward(ctx, a, b, eq):
+        ctx.save_for_backward(a, b)
+        ctx.eq = eq
+        with _tf32():
+            return _product(a, b, eq)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        with _tf32():
+            if ctx.eq is None:          # a (..., k) @ b (k, n)
+                if ctx.needs_input_grad[0]:
+                    ga = g @ b.t()
+                if ctx.needs_input_grad[1]:
+                    gb = (a.reshape(-1, a.shape[-1]).t()
+                          @ g.reshape(-1, g.shape[-1]))
+            else:                       # every index of a in b or the output
+                x, rest = ctx.eq.split(",")
+                y, z = rest.split("->")
+                if ctx.needs_input_grad[0]:
+                    ga = torch.einsum(f"{z},{y}->{x}", g, b)
+                if ctx.needs_input_grad[1]:
+                    gb = torch.einsum(f"{x},{z}->{y}", a, g)
+        return ga, gb, None
+
+
+def fp32_product(a: torch.Tensor, b: torch.Tensor, eq: Optional[str] = None,
+                 *, dtype: torch.dtype) -> torch.Tensor:
+    """``a @ b`` (``b`` 2-D) or ``torch.einsum(eq, a, b)`` of fp32 operands
+    that hold values of ``dtype``, the compute dtype they were upcast from:
+    the reference's product of ``dtype`` operands with
+    ``preferred_element_type=jnp.float32``.
+
+    The plain version, on the CPU and for fp32 values anywhere, is that
+    fp32 product; a product of two bf16 values is exact in fp32, so it is
+    the reference's arithmetic.  The card version (``on_tensor_cores``:
+    bf16 values on a CUDA device) is the same product with TF32 allowed,
+    forward and backward, so it runs on the tensor cores with fp32
+    accumulation and output: a bf16 value is exact in TF32, so the forward
+    changes only the order of the sums; the backward rounds its fp32
+    gradient operand to TF32's 10 bits (the reference's TPU rounds it to
+    bf16's 7 at its default precision)."""
+    if on_tensor_cores(a.device, dtype):
+        return _TF32Product.apply(a, b, eq)
+    return _product(a, b, eq)
 
 
 # ---------------------------------------------------------------------------
@@ -204,6 +286,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kc = _divisor_chunk(kv_chunk, Skv)
     nq, nk = Sq // qc, Skv // kc
     scale = 1.0 / math.sqrt(D)
+    qk_dtype = torch.promote_types(q.dtype, k.dtype)
 
     # (nq, B, KV, G, qc, D): the kv-head dimension on "model", so the score
     # and output tiles compute with sharded heads
@@ -224,7 +307,8 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         l = torch.zeros_like(m)
         for j in range(nk):
             kt, vt = kr[j], vr[j]               # (B, KV, kc, D)
-            s = torch.einsum("bhgqd,bhkd->bhgqk", qt, kt.float()) * scale
+            s = fp32_product(qt, kt.float(), "bhgqd,bhkd->bhgqk",
+                             dtype=qk_dtype) * scale
             if causal:
                 ok = qp[i][:, None] >= kp[j][None, :]
                 s = s.masked_fill(replicate_like(s, ~ok), _MASK)
@@ -232,8 +316,9 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
             l = l * corr + p.sum(dim=-1)
-            o = o * corr[..., None] + torch.einsum(
-                "bhgqk,bhkd->bhgqd", p.to(vt.dtype).float(), vt.float())
+            o = o * corr[..., None] + fp32_product(
+                p.to(vt.dtype).float(), vt.float(), "bhgqk,bhkd->bhgqd",
+                dtype=vt.dtype)
             m = m_new
         outs.append((o / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype))
     out = hint(torch.stack(outs), None, BATCH, "model", None, None, None)
@@ -451,7 +536,9 @@ def _vocab_parallel(fn, table: DTensor, ids: torch.Tensor, dim: int,
 def logits_last(cfg: ModelConfig, embed: Embed, h: torch.Tensor
                 ) -> torch.Tensor:
     """Logits for the last position only (decode / prefill output)."""
-    return h[:, -1].float() @ embed.table().float().t()
+    table = embed.table()
+    return fp32_product(h[:, -1].float(), table.float().t(),
+                        dtype=torch.promote_types(h.dtype, table.dtype))
 
 
 def chunked_softmax_xent(cfg: ModelConfig, embed: Embed, h: torch.Tensor,
@@ -472,7 +559,8 @@ def chunked_softmax_xent(cfg: ModelConfig, embed: Embed, h: torch.Tensor,
         hc = h[:, s0:s0 + cs].to(dt(cfg)).float()
         lc = labels[:, s0:s0 + cs]
         mc = mask[:, s0:s0 + cs].float()
-        logits = hint(hc @ W.t(), BATCH, None, "model")
+        logits = hint(fp32_product(hc, W.t(), dtype=dt(cfg)), BATCH, None,
+                      "model")
         lse = torch.logsumexp(logits, dim=-1)
         idx = torch.clamp(lc, min=0).long()
         if isinstance(logits, DTensor):     # a partial sum: reduce it here

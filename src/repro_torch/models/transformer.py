@@ -25,7 +25,9 @@ backward (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``
 around the scanned body); ``remat_policy="dots"`` keeps the outputs of the
 matmuls without batch dimensions instead of recomputing them (the
 reference's ``dots_with_no_batch_dims_saveable``).  Remat changes memory,
-not numbers.
+not numbers.  The models draw no random numbers, so the recomputation
+neither saves nor restores the RNG state (which a CUDA graph's capture
+could not read).
 
 Caches keep the reference's layout: attention k/v (L, B, S_max, KV, hd);
 ssm conv (L, B, conv-1, di+2N) and state (L, B, Hs, P, N); hybrid adds the
@@ -231,7 +233,8 @@ def _remat(cfg: ModelConfig, fn, *args):
     if cfg.remat_policy == "dots":
         kw["context_fn"] = functools.partial(
             create_selective_checkpoint_contexts, _save_dots)
-    return checkpoint(fn, *args, use_reentrant=False, **kw)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False, **kw)
 
 
 def forward_hidden(cfg: ModelConfig, model: Transformer, h: torch.Tensor, *,

@@ -4,9 +4,11 @@ from .optimizer import AdamWConfig, OptimizerConfig, OptState, init_opt, \
     apply_updates, global_norm
 from .step import make_decode_step, make_prefill_step, make_train_step
 from .data import DataConfig, SyntheticLM
+from .graph import EagerTrainStep, TrainGraph
 from .loop import LoopConfig, TrainResult, train
 
 __all__ = ["AdamWConfig", "OptimizerConfig", "OptState", "init_opt",
            "apply_updates", "global_norm", "make_decode_step",
            "make_prefill_step", "make_train_step", "DataConfig",
-           "SyntheticLM", "LoopConfig", "TrainResult", "train"]
+           "SyntheticLM", "EagerTrainStep", "TrainGraph", "LoopConfig",
+           "TrainResult", "train"]

@@ -11,6 +11,13 @@ The loop demonstrates the full fault-tolerance story end to end:
   * the data pipeline is a pure function of the step, so the replayed steps
     repeat the uninterrupted run's (tested).
 
+On the card the loop runs one ``TrainGraph`` (the step captured as a CUDA
+graph, the reference's ``jax.jit``): the first step runs eagerly, as the
+capture's warm-up, and every later one replays the graph.  The graph is
+released before a save or a regeneration and restore, which need its
+memory, and captured again at the next step.  On the CPU the loop runs ``EagerTrainStep``, the
+same buffers and call, eagerly.
+
 The checkpointed state is ``{"params": model.state_dict(), "opt":
 OptState, "step": np.int32}``: the port's own layout (one tensor per layer
 in the ``state_dict``'s order, moments keyed by parameter name), not the
@@ -33,8 +40,8 @@ from ..ft.erasure import tree_flatten
 from ..models import init_params
 from ..models.config import ModelConfig
 from .data import DataConfig, SyntheticLM
+from .graph import EagerTrainStep, TrainGraph
 from .optimizer import OptimizerConfig, init_opt
-from .step import make_train_step
 
 
 @dataclasses.dataclass
@@ -87,7 +94,8 @@ def train(model_cfg: ModelConfig, data_cfg: DataConfig,
     model = init_params(model_cfg, loop_cfg.seed, device=dev)
     opt_state = init_opt(opt_cfg, model, device=dev)
     data = SyntheticLM(data_cfg, model_cfg, device=dev)
-    step_fn = make_train_step(model_cfg, opt_cfg, n_micro=loop_cfg.n_micro)
+    runner = (TrainGraph if dev.type == "cuda" else EagerTrainStep)(
+        model_cfg, opt_cfg, model, opt_state, n_micro=loop_cfg.n_micro)
 
     fleet = Fleet(FleetConfig(), seed=loop_cfg.seed)
     coder = ErasureCoder(n=loop_cfg.ec_n, k=loop_cfg.ec_k, d=loop_cfg.ec_d,
@@ -100,16 +108,16 @@ def train(model_cfg: ModelConfig, data_cfg: DataConfig,
     step = 0
     while step < loop_cfg.steps:
         t0 = time.perf_counter()
-        batch = data.batch_at(step)
-        model, opt_state, metrics = step_fn(model, opt_state, batch)
-        del batch
+        metrics = runner(data.batch_at(step))
         loss = float(metrics["loss"])
         losses.append(loss)
         if step % loop_cfg.log_every == 0:
             log(f"step {step:4d} loss {loss:.4f} "
                 f"gnorm {float(metrics['grad_norm']):.3f} "
                 f"dt {time.perf_counter() - t0:.2f}s")
+        del metrics
         if (step + 1) % loop_cfg.ckpt_every == 0:
+            runner.release()
             ckpt.save({"params": model.state_dict(), "opt": opt_state,
                        "step": np.int32(step + 1)}, step + 1)
             log(f"step {step:4d} checkpoint saved "
@@ -118,6 +126,7 @@ def train(model_cfg: ModelConfig, data_cfg: DataConfig,
             host = fail_at.pop(step)
             log(f"step {step:4d} !! host {host} failed")
             if ckpt.group is not None:
+                runner.release()
                 rec = ckpt.on_host_failure(host, scheme=scheme)
                 log(f"           regen scheme={rec.decision.plan.scheme} "
                     f"predicted={rec.decision.predicted_s:.3f}s "

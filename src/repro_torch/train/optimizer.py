@@ -197,6 +197,17 @@ def apply_updates(cfg: OptimizerConfig, params: Params,
     """One optimizer step.  ``grads`` maps each parameter's name to its
     gradient.  The parameters and the moments are updated in place; returns
     ``(params, state)`` with the state's step advanced."""
+    params, state, _ = _apply_updates(cfg, params, grads, state, lr_scale)
+    return params, state
+
+
+@torch.no_grad()
+def _apply_updates(cfg: OptimizerConfig, params: Params,
+                   grads: Mapping[str, torch.Tensor], state: OptState,
+                   lr_scale: "torch.Tensor | float" = 1.0
+                   ) -> Tuple[Params, OptState, torch.Tensor]:
+    """``apply_updates``, and the gradients' global norm that it clipped
+    by, which the train step reports: one pass over the gradients."""
     named = named_params(params)
     gnorm = global_norm([grads[n] for n in named])
     clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
@@ -205,4 +216,4 @@ def apply_updates(cfg: OptimizerConfig, params: Params,
         _adamw_update(cfg, named, grads, state, lr, clip)
     else:
         _adafactor_update(cfg, named, grads, state, lr, clip)
-    return params, OptState(step=state.step + 1, m=state.m, v=state.v)
+    return params, OptState(step=state.step + 1, m=state.m, v=state.v), gnorm

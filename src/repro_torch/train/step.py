@@ -23,7 +23,7 @@ from ..models import loss_fn as model_loss
 from ..models import prefill as model_prefill
 from ..models.config import ModelConfig
 from ..models.layers import _DTYPES
-from .optimizer import (AdamWConfig, AdamWState, apply_updates, global_norm,
+from .optimizer import (AdamWConfig, AdamWState, _apply_updates,
                         named_params)
 
 
@@ -155,8 +155,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, n_micro: int = 1,
         grads = {n: constrain(a.float().div_(n_micro), n)
                  for n, a in acc.items()}
         del acc, compute
-        model, new_opt = apply_updates(opt_cfg, model, grads, opt_state)
-        gnorm = global_norm([grads[n] for n in params])
+        model, new_opt, gnorm = _apply_updates(opt_cfg, model, grads,
+                                               opt_state)
         loss = loss_sum / n_micro
         metrics = {"loss": _plain(loss), "grad_norm": _plain(gnorm),
                    "step": new_opt.step}
