@@ -751,6 +751,13 @@ class RecordedPolicy:
         return self._call("replan_candidates", caps, params, device)
 
 
+def kernel_launches() -> int:
+    """The GF(2^8) kernel's launches so far (the program's counter
+    ``gf.launches``)."""
+    from repro_torch.obs import spans
+    return spans.total("gf.launches")
+
+
 def fresh_peak() -> int:
     """Free what earlier runs left for the collector, reset the peak, and
     return the bytes still allocated: the baseline a run's peak is read
@@ -852,13 +859,13 @@ def fleet_phase(seed: int, root: pathlib.Path) -> tuple:
     shape_log = ShapeLog(gf_matmul)
     recorded = RecordedPolicy(fleet.make_policy("flexible"))
     policy = TimedPolicy(recorded)
-    gf_matmul_cuda.launches = 0
+    launch0 = kernel_launches()
     with store_matmul(shape_log):
         sim, summary, rec = fleet_run(
             name, lambda: fleet.FleetSimulator(storm, policy, params,
                                                seed=region_seed, device=dev),
             policy, source, reduced)
-    launches = gf_matmul_cuda.launches
+    launches = kernel_launches() - launch0
     torch.cuda.synchronize()
     fleet_ms = shape_log.ms_by_shape()
     store = sim.dataplane.store
@@ -902,7 +909,7 @@ def fleet_phase(seed: int, root: pathlib.Path) -> tuple:
             name + "/plain", lambda: fleet.FleetSimulator(
                 storm, replay, params, seed=region_seed, device=dev),
             replay, source, reduced)
-    if gf_matmul_cuda.launches != launches:
+    if kernel_launches() - launch0 != launches:
         raise AssertionError("the plain run reached the kernel")
     plain_store = plain_sim.dataplane.store
     if plain_summary != summary or replay.inner.at != len(recorded.calls) \
@@ -1197,7 +1204,7 @@ def ft_phase(seed: int, cfg, model) -> tuple:
     from repro_torch.ft import checkpoint as ckmod
     from repro_torch.ft.erasure import tree_flatten
     from repro_torch.ft.walkthrough import same_bytes
-    from repro_torch.kernels import gf_matmul, gf_matmul_cuda
+    from repro_torch.kernels import gf_matmul
 
     dev = torch.device(DEVICE, torch.cuda.current_device())
     state = {"params": model.state_dict(),
@@ -1208,12 +1215,12 @@ def ft_phase(seed: int, cfg, model) -> tuple:
     ckpt = ECCheckpoint(Fleet(FleetConfig(**FT_FLEET), seed=seed), coder,
                         FT_HOSTS, seed=seed)
     base = fresh_peak()
-    gf_matmul_cuda.launches = 0
+    launch0 = kernel_launches()
     t0 = time.perf_counter()
     ckpt.save(state, step=1000)
     torch.cuda.synchronize()
     save_s = time.perf_counter() - t0
-    save_launches = gf_matmul_cuda.launches
+    save_launches = kernel_launches() - launch0
     group, spec = ckpt.group, ckpt.spec
     block_bytes = group.block_bytes
     if not (block_bytes == math.ceil(spec.total_bytes / coder.M)
@@ -1242,9 +1249,9 @@ def ft_phase(seed: int, cfg, model) -> tuple:
     repairs = []
     with mock.patch.object(ckmod, "plan_recovery", timed_plan):
         for i, scheme in enumerate(FT_SCHEMES):
-            launched = gf_matmul_cuda.launches
+            launched = kernel_launches()
             rec_log = ckpt.on_host_failure(FT_FAILED, scheme=scheme)
-            launched = gf_matmul_cuda.launches - launched
+            launched = kernel_launches() - launched
             shard = group.shards[FT_FAILED]
             if launched <= 0 or shard.payload.shape != (coder.alpha,
                                                         block_bytes):
@@ -1278,7 +1285,7 @@ def ft_phase(seed: int, cfg, model) -> tuple:
                 f"{rep['execute_s']:.3f} s ({launched} launches); restore "
                 + ", ".join(f"{r['hosts']} {r['s']:.3f} s"
                             for r in rep["restores"]) + ": bit for bit")
-    launches = gf_matmul_cuda.launches
+    launches = kernel_launches() - launch0
     torch.cuda.synchronize()
     phase_ms = shape_log.ms_by_shape()
     if launches <= save_launches or launches != sum(shape_log.shapes.values()):
@@ -2094,7 +2101,7 @@ def train_phase(seed: int) -> tuple:
     from repro_torch.ft import ECCheckpoint, ErasureCoder
     from repro_torch.ft import checkpoint as ckmod
     from repro_torch.ft.erasure import tree_to_bytes
-    from repro_torch.kernels import gf_matmul, gf_matmul_cuda
+    from repro_torch.kernels import gf_matmul
     from repro_torch.train import (DataConfig, LoopConfig, OptimizerConfig,
                                    SyntheticLM, train)
     from repro_torch.train import loop as loopmod
@@ -2144,12 +2151,18 @@ def train_phase(seed: int) -> tuple:
     class TimedGraph(loopmod.TrainGraph):
         """Times every call to a synchronize (``seconds``) and keeps what
         it was (``kinds``): the eager first step, a capture and its
-        replay, or a replay."""
+        replay, or a replay; ``capture_s`` holds the host seconds of each
+        capture and instantiation."""
 
         def __init__(self, *a, **kw):
             super().__init__(*a, **kw)
-            self.seconds, self.kinds = [], []
+            self.seconds, self.kinds, self.capture_s = [], [], []
             graphs.append(self)
+
+        def _capture(self):
+            t0 = time.perf_counter()
+            super()._capture()
+            self.capture_s.append(time.perf_counter() - t0)
 
         def __call__(self, batch):
             self.kinds.append("replay" if self.graph is not None else
@@ -2187,18 +2200,18 @@ def train_phase(seed: int) -> tuple:
         f"parameters, AdamW fp32 moments): batch {TRAIN_DATA['batch']} x "
         f"{TRAIN_DATA['seq_len']}, {TRAIN_LOOP['n_micro']} microbatches")
     base = fresh_peak()
-    gf_matmul_cuda.launches = 0
+    launch0 = kernel_launches()
     plain, plain_graph = run({})
     plain_params = {n: t.cpu() for n, t in
                     plain.final_state["params"].state_dict().items()}
-    plain_launches = gf_matmul_cuda.launches
+    plain_launches = kernel_launches() - launch0
     plain_losses = plain.losses
     del plain
     t_plain = dict(timings)
     timings.clear()
     failed, failed_graph = run(dict(TRAIN_FAIL))
     peak = torch.cuda.max_memory_allocated() - base
-    launches = gf_matmul_cuda.launches
+    launches = kernel_launches() - launch0
     torch.cuda.synchronize()
     phase_ms = shape_log.ms_by_shape()
     if not (plain_launches > 0 and launches > plain_launches
@@ -2385,8 +2398,7 @@ def train_gates(seed: int) -> dict:
                    reserved_gib=torch.cuda.memory_reserved() / 2**30,
                    base_gib=base / 2**30)
         if cls is TrainGraph:
-            rec.update(capture_call_ms=secs[1] * 1e3,
-                       capture_ms=[t * 1e3 for t in runner.capture_s])
+            rec.update(capture_call_ms=secs[1] * 1e3)
         rec["profile"] = step_profile(lambda: runner(batches[GATE_STEPS]),
                                       like=like)
         # the profiler slows the host, so the idle share that matters is
@@ -2443,8 +2455,7 @@ def train_gates(seed: int) -> dict:
         + ", ".join(f"{x:.3g}" for x in rel["grad_norms"])
         + f" (gate {PRODUCT_RTOL:g}); first (eager) call "
         f"{graph['first_call_ms']:.0f} ms, capture call "
-        f"{graph['capture_call_ms']:.0f} ms (capture "
-        f"{graph['capture_ms'][0]:.0f} ms)")
+        f"{graph['capture_call_ms']:.0f} ms")
     for rec in (plain, eager, graph):
         del rec["profile"]["order"]
     return out
@@ -2683,7 +2694,7 @@ def main(argv=None) -> int:
     params = CodeParams.msr(**PARAMS)
     M, alpha, k = int(params.M), int(round(params.alpha)), params.k
     shape_log = ShapeLog(gf_matmul)
-    gf_matmul_cuda.launches = 0
+    launch0 = kernel_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     sim = RlncSimulator(params, block_bytes=BLOCK_BYTES, seed=args.seed,
@@ -2704,7 +2715,7 @@ def main(argv=None) -> int:
     for scheme in SCHEMES:
         before = (dict(sim.nodes), sim.np_rng.bit_generator.state,
                   sim.rng.getstate())
-        launched = gf_matmul_cuda.launches
+        launched = kernel_launches()
         t0 = time.perf_counter()
         [(failed, providers, plan)] = sim.plan_rounds(scheme, uniform(), 1)
         t_plan = time.perf_counter() - t0
@@ -2715,7 +2726,7 @@ def main(argv=None) -> int:
         sim.execute_plan(plan, failed, providers)
         torch.cuda.synchronize()
         t_exec = time.perf_counter() - t0
-        launched = gf_matmul_cuda.launches - launched
+        launched = kernel_launches() - launched
         if launched <= 0:
             raise AssertionError(f"{scheme}: the repair launched no kernel")
         newcomer = sim.nodes[failed]
@@ -2766,7 +2777,7 @@ def main(argv=None) -> int:
             f"plan {t_plan:.3f} s, execute {t_exec:.3f} s ({launched} "
             f"launches), decode {t_dec:.3f} s (bitwise), plain rerun equal, "
             f"P(reconstruct) {prob:.4f} over {PROB_SAMPLES} subsets")
-    launches = gf_matmul_cuda.launches
+    launches = kernel_launches() - launch0
     if launches <= 0:
         raise AssertionError("the main path never launched the kernel")
     torch.cuda.synchronize()

@@ -22,6 +22,7 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..kernels.ops import gf_matmul
+from ..obs import spans
 from .gf import GF, GF8
 
 Matmul = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -123,25 +124,28 @@ class RLNC:
     def encode(self, local: CodedBlocks, num_out: int,
                rng: np.random.Generator) -> CodedBlocks:
         """Provider-side: num_out random combinations of the local blocks."""
-        R = self.random((num_out, local.num), rng)
-        return CodedBlocks(self._matmul(R, local.vectors),
-                           self._matmul(R, local.payload))
+        with spans.span("rlnc.encode"):
+            R = self.random((num_out, local.num), rng)
+            return CodedBlocks(self._matmul(R, local.vectors),
+                               self._matmul(R, local.payload))
 
     def relay(self, received: CodedBlocks, own: CodedBlocks, num_out: int,
               rng: np.random.Generator) -> CodedBlocks:
         """Interior tree node: re-encode (received ++ freshly generated own
         data) down to num_out blocks (Section V-A)."""
-        pool = received.concat(own)
-        R = self.random((num_out, pool.num), rng)
-        return CodedBlocks(self._matmul(R, pool.vectors),
-                           self._matmul(R, pool.payload))
+        with spans.span("rlnc.relay"):
+            pool = received.concat(own)
+            R = self.random((num_out, pool.num), rng)
+            return CodedBlocks(self._matmul(R, pool.vectors),
+                               self._matmul(R, pool.payload))
 
     def regenerate(self, received: CodedBlocks, alpha: int,
                    rng: np.random.Generator) -> CodedBlocks:
         """Newcomer: store alpha random combinations of everything received."""
-        R = self.random((alpha, received.num), rng)
-        return CodedBlocks(self._matmul(R, received.vectors),
-                           self._matmul(R, received.payload))
+        with spans.span("rlnc.regenerate"):
+            R = self.random((alpha, received.num), rng)
+            return CodedBlocks(self._matmul(R, received.vectors),
+                               self._matmul(R, received.payload))
 
     # -- reconstruction --------------------------------------------------------
 

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..obs import spans
 from .batched import BatchPlanResult, caps_tensor, plans_from_batch
 from .params import CodeParams, OverlayNetwork, RepairPlan
 from .star import plan_fr, plan_shah, plan_star
@@ -197,7 +198,9 @@ def plan(net: OverlayNetwork, params: CodeParams, scheme: str,
                         witness=witness, profile=profile, device=device,
                         **kwargs)
         return plans_from_batch(res, params)[0]
-    with _total(profile, None):
+    with spans.span("plan.many", dict(scheme=spec.name, B=1,
+                                      engine=resolved)), \
+            _total(profile, None):
         return spec.scalar(net, params,
                            **_planner_kwargs(spec, witness, kwargs))
 
@@ -236,18 +239,21 @@ def plan_many(nets: Nets, params: CodeParams, scheme: str,
         profile.note(scheme=spec.name, batch=len(nets), d=params.d,
                      engine=resolved, fallback=engine not in ("auto",
                                                               resolved))
-    if resolved == "batched":
-        caps = _caps_on_device(nets, device)
-        if spec.accepts_profile and profile is not None:
-            kw["profile"] = profile
-        with _total(profile, caps.device):
-            return spec.batched(caps, params, **kw)
-    if hasattr(nets, "shape"):
-        arr = nets.cpu().numpy() if isinstance(nets, torch.Tensor) else nets
-        nets = [OverlayNetwork(c.tolist()) for c in np.asarray(arr)]
-    with _total(profile, None):
-        plans = [spec.scalar(n, params, **kw) for n in nets]
-    return _batch_from_plans(spec, plans, params)
+    with spans.span("plan.many", dict(scheme=spec.name, B=len(nets),
+                                      engine=resolved)):
+        if resolved == "batched":
+            caps = _caps_on_device(nets, device)
+            if spec.accepts_profile and profile is not None:
+                kw["profile"] = profile
+            with _total(profile, caps.device):
+                return spec.batched(caps, params, **kw)
+        if hasattr(nets, "shape"):
+            arr = (nets.cpu().numpy() if isinstance(nets, torch.Tensor)
+                   else nets)
+            nets = [OverlayNetwork(c.tolist()) for c in np.asarray(arr)]
+        with _total(profile, None):
+            plans = [spec.scalar(n, params, **kw) for n in nets]
+        return _batch_from_plans(spec, plans, params)
 
 
 def _plan_ragged(nets: List[OverlayNetwork], params: CodeParams, scheme: str,

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..obs import spans
 from .params import CodeParams, OverlayNetwork, RepairPlan, tree_flows
 
 __all__ = ["BatchPlanResult", "caps_tensor", "plans_from_batch",
@@ -89,8 +90,11 @@ def plans_from_batches(results: Sequence[BatchPlanResult],
         blocks.append(torch.cat([res.times[:, None], res.betas,
                                  res.parents.to(torch.float64),
                                  lbs[:, None]], dim=1))
-    rows = (torch.cat([b.to(blocks[0].device) for b in blocks]).cpu().tolist()
-            if blocks else [])
+    rows = []
+    if blocks:
+        spans.count("plan.reads.unpack")
+        rows = torch.cat([b.to(blocks[0].device) for b in blocks]
+                         ).cpu().tolist()
     out: List[List[RepairPlan]] = []
     at = 0
     for res in results:

@@ -23,12 +23,18 @@ launches and device-to-host reads, not arithmetic.  The design follows:
 * loops whose length depends on the data (hi-doubling, the local search's
   probe waves) read one flag from the device per pass, and refinements run
   on the lanes that need them only;
-* ``syncs`` counts the engine's own device-to-host reads;
-* ``profile=`` (fr and ftr) times the reference's stages (``closed_form``,
-  ``star_bisection``, ``witness``; ``tr_seed``, ``candidates``,
-  ``local_search``, ``final_solve``, ``witness``) and counts its work
-  items; each stage ends in a synchronize on the card.  Only a profiled
-  plan reads the device for them (not counted in ``syncs``).
+* ``syncs`` counts the engine's own device-to-host reads, and the
+  counters ``plan.reads.<site>`` (``obs.spans``) count them by call site;
+  the spans ``plan.waterfill``, ``plan.bisect`` and
+  ``plan.ftr.local_search.probe`` (a probe wave) name the host's time in
+  the loops that make most of them;
+* the reference's stages (``closed_form``, ``star_bisection``,
+  ``witness``; ``tr_seed``, ``candidates``, ``local_search``,
+  ``final_solve``, ``witness``) are spans ``plan.<scheme>.<stage>`` on the
+  profiler's clock; ``profile=`` (fr and ftr) also times them and counts
+  the work items, each stage then ending in a synchronize on the card.
+  Only a profiled plan reads the device for them (``plan.reads.profile``,
+  not counted in ``syncs``).
 
 Float64 is named on every float tensor (torch defaults to float32), and
 parents are int64.  The reductions (the cumsum of the region check, the
@@ -43,6 +49,7 @@ from typing import Callable, Iterator, Optional, Tuple
 
 import torch
 
+from ..obs import spans
 from .batched import BatchPlanResult, star_parents
 from .ftr import (EVAL_ITERS, FINAL_ITERS, LOCAL_SEARCH_ALTS,
                   LOCAL_SEARCH_ROUNDS, PROBE_SLACK, REFINE_ITERS)
@@ -62,40 +69,47 @@ _DOUBLINGS = 4          # hi doublings between reads of the exit flag
 syncs = 0               # device-to-host reads made by the engine
 
 
-def _read(*flags: torch.Tensor) -> list:
-    """Scalar flags to the host in one read."""
+def _read(site: str, *flags: torch.Tensor) -> list:
+    """Scalar flags to the host in one read, counted under ``site``."""
     global syncs
     syncs += 1
+    spans.count("plan.reads." + site)
     return torch.stack(flags).tolist()
 
 
-def _lanes(mask: torch.Tensor) -> torch.Tensor:
-    """Indices of the set lanes (one read)."""
+def _lanes(site: str, mask: torch.Tensor) -> torch.Tensor:
+    """Indices of the set lanes (one read, counted under ``site``)."""
     global syncs
     syncs += 1
+    spans.count("plan.reads." + site)
     return torch.nonzero(mask).squeeze(1)
 
 
 @contextlib.contextmanager
-def _stage(profile, name: str, device: torch.device) -> Iterator[None]:
-    """The ``profile=`` hook's stage ``name`` (the reference's ``_pstage``):
-    nothing without a profile; with one, the stage ends when the device's
-    work is done.  Stages only measure, never branch, so a profiled plan is
-    the same plan."""
-    if profile is None:
-        yield
-        return
-    with profile.stage(name):
-        yield
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+def _stage(profile, scheme: str, name: str,
+           device: torch.device) -> Iterator[None]:
+    """Stage ``name`` of ``scheme``'s planner: always the span
+    ``plan.<scheme>.<name>``; with a profile also the ``profile=`` hook's
+    stage (the reference's ``_pstage``), which ends when the device's work
+    is done.  Stages only measure, never branch, so a profiled plan is the
+    same plan."""
+    with spans.span(f"plan.{scheme}.{name}"):
+        if profile is None:
+            yield
+            return
+        with profile.stage(name):
+            yield
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
 
 
 def _count(profile, **counts) -> None:
     """The profile's counters; a tensor count is read from the device (a
-    read of the profile's, not counted in ``syncs``)."""
+    read of the profile's, ``plan.reads.profile``, not in ``syncs``)."""
     if profile is not None:
         for name, n in counts.items():
+            if isinstance(n, torch.Tensor):
+                spans.count("plan.reads.profile")
             profile.count(name, int(n))
 
 
@@ -164,27 +178,31 @@ def _waterfill(inc: torch.Tensor, bnd: torch.Tensor,
     """Lockstep leximin water-fill (``batched.waterfill_batch``): each round
     freezes the chain-minimal saturated sets of every lane; a lane with no
     freezable set fills its active coordinates to alpha."""
-    P, S, d = inc.shape
-    athr = alpha - 1e-15
-    member = inc > 0
-    v = torch.zeros((P, d), dtype=F64, device=inc.device)
-    active = torch.ones((P, d), dtype=F64, device=inc.device)
-    for r in range(d):
-        Y = inc @ torch.stack([active, v * (1.0 - active)], dim=-1)
-        na = Y[..., 0]
-        cand = torch.where(na == 0, INF, (bnd - Y[..., 1]) / na.clamp_min(1.0))
-        freezable = cand < athr
-        chmin = torch.where(chain, cand[:, None, :], INF).amin(dim=2)
-        setfreeze = freezable & (cand <= chmin)
-        lamx = torch.where(setfreeze[:, :, None] & member, cand[:, :, None],
-                           INF).amin(dim=1).clamp_min(0.0)
-        fin = lamx < INF
-        mfrz = fin | ~setfreeze.any(dim=1, keepdim=True)
-        v = torch.where(mfrz & (active > 0), torch.where(fin, lamx, alpha), v)
-        active = active * ~mfrz
-        if r + 1 < d and not _read(active.any())[0]:
-            break
-    return v
+    with spans.span("plan.waterfill"):
+        P, S, d = inc.shape
+        athr = alpha - 1e-15
+        member = inc > 0
+        v = torch.zeros((P, d), dtype=F64, device=inc.device)
+        active = torch.ones((P, d), dtype=F64, device=inc.device)
+        for r in range(d):
+            Y = inc @ torch.stack([active, v * (1.0 - active)], dim=-1)
+            na = Y[..., 0]
+            cand = torch.where(na == 0, INF,
+                               (bnd - Y[..., 1]) / na.clamp_min(1.0))
+            freezable = cand < athr
+            chmin = torch.where(chain, cand[:, None, :], INF).amin(dim=2)
+            setfreeze = freezable & (cand <= chmin)
+            lamx = torch.where(setfreeze[:, :, None] & member,
+                               cand[:, :, None], INF)
+            lamx = lamx.amin(dim=1).clamp_min(0.0)
+            fin = lamx < INF
+            mfrz = fin | ~setfreeze.any(dim=1, keepdim=True)
+            v = torch.where(mfrz & (active > 0),
+                            torch.where(fin, lamx, alpha), v)
+            active = active * ~mfrz
+            if r + 1 < d and not _read("waterfill", active.any())[0]:
+                break
+        return v
 
 
 def _tree_feasible(t: torch.Tensor, inc: torch.Tensor, ec: torch.Tensor,
@@ -268,22 +286,23 @@ def _bisect(oracle: Callable, lo: torch.Tensor, hi: torch.Tensor, iters: int,
     """``iters`` bisection steps on [lo, hi] (feasible: hi = mid, else
     lo = mid) on the lanes ``on``, each lane stopping after ``budget`` steps
     if given.  Lanes out of play query t = 1.0 and keep lo and hi."""
-    n = lo.shape[0]
-    done = 0
-    while done < iters:
-        levels = min(_SPEC_LEVELS, iters - done)
-        mids = _spec_mids(lo, hi, levels)
-        f = oracle(torch.where(on[:, None], mids, 1.0))
-        node = torch.zeros((n, 1), dtype=torch.long, device=lo.device)
-        for step in range(levels):
-            go = on if budget is None else on & (done + step < budget)
-            m = mids.gather(1, node)[:, 0]
-            fb = f.gather(1, node)[:, 0]
-            hi = torch.where(go & fb, m, hi)
-            lo = torch.where(go & ~fb, m, lo)
-            node = 2 * node + 2 - fb[:, None].long()
-        done += levels
-    return lo, hi
+    with spans.span("plan.bisect"):
+        n = lo.shape[0]
+        done = 0
+        while done < iters:
+            levels = min(_SPEC_LEVELS, iters - done)
+            mids = _spec_mids(lo, hi, levels)
+            f = oracle(torch.where(on[:, None], mids, 1.0))
+            node = torch.zeros((n, 1), dtype=torch.long, device=lo.device)
+            for step in range(levels):
+                go = on if budget is None else on & (done + step < budget)
+                m = mids.gather(1, node)[:, 0]
+                fb = f.gather(1, node)[:, 0]
+                hi = torch.where(go & fb, m, hi)
+                lo = torch.where(go & ~fb, m, lo)
+                node = 2 * node + 2 - fb[:, None].long()
+            done += levels
+        return lo, hi
 
 
 def _double(oracle: Callable, hi: torch.Tensor, need: torch.Tensor,
@@ -292,7 +311,7 @@ def _double(oracle: Callable, hi: torch.Tensor, need: torch.Tensor,
     ``need`` double hi until feasible, giving up at 1e18.  Returns (hi,
     lanes that became feasible)."""
     feasd = torch.zeros_like(need)
-    while _read(need.any())[0]:
+    while _read("double", need.any())[0]:
         for _ in range(_DOUBLINGS):
             hi = torch.where(need, hi * 2.0, hi)
             over = hi >= 1e18
@@ -335,7 +354,7 @@ def _star_optimal_time(direct: torch.Tensor, x: torch.Tensor, alpha: float,
         for _ in range(_DOUBLINGS):
             hi = torch.where(ok, hi, hi * 2.0)
             ok = ok | (hi > 1e18) | oracle(hi[:, None])[:, 0]
-        if _read(ok.all())[0]:
+        if _read("star.ok", ok.all())[0]:
             break
     dead = lanes & (hi > 1e18)
     _, hi = _bisect(oracle, torch.zeros_like(hi), hi, BISECT_ITERS,
@@ -379,19 +398,22 @@ def plan_fr_batch(caps: torch.Tensor, params: CodeParams,
     closed = torch.zeros(B, dtype=torch.bool, device=dev)
     if params.is_msr:
         closed = (direct > 0).all(dim=1)
-        staged = profile is not None and bool(closed.any())
-        with _stage(profile if staged else None, "closed_form", dev):
+        staged = False
+        if profile is not None:             # a read of the profile's
+            spans.count("plan.reads.profile")
+            staged = bool(closed.any())
+        with _stage(profile if staged else None, "fr", "closed_form", dev):
             cb, ct = _fr_closed_form(direct, closed, params.k, params.M)
             betas = torch.where(closed[:, None], cb, betas)
             lb = torch.where(closed, ct, lb)
     rest = ~closed
-    if _read(rest.any())[0]:
-        with _stage(profile, "star_bisection", dev):
+    if _read("fr.rest", rest.any())[0]:
+        with _stage(profile, "fr", "star_bisection", dev):
             t_rest = _star_optimal_time(direct, x, params.alpha, rest)
         _count(profile, bisection_iters=BISECT_ITERS)
         lb = torch.where(rest, t_rest, lb)
         live = rest & torch.isfinite(t_rest)
-        with _stage(profile, "witness", dev):
+        with _stage(profile, "fr", "witness", dev):
             ub = (torch.where(live, t_rest, 0.0)[:, None] * direct
                   ).clamp_max(params.alpha)
             wb = _level_cut(ub, x) if minimize_traffic else ub
@@ -429,7 +451,7 @@ def plan_shah_batch(caps: torch.Tensor, params: CodeParams,
     hi = torch.ones(B, dtype=F64, device=dev)
     dead = torch.zeros(B, dtype=torch.bool, device=dev)
     need = tot(hi[:, None])[:, 0] < gamma
-    while _read((need & ~dead).any())[0]:
+    while _read("shah.need", (need & ~dead).any())[0]:
         for _ in range(_DOUBLINGS):
             grow = need & ~dead
             hi = torch.where(grow, hi * 2.0, hi)
@@ -610,11 +632,12 @@ def _candidate_times(caps: torch.Tensor, cands: torch.Tensor, x: torch.Tensor,
         hi, feasd = _double(oracle, t0, full & ~f)
         feasd = feasd | (f & full)
         solve = pf | feasd
-        idx = _lanes(solve)
+        idx = _lanes("candidates.lanes", solve)
         if not idx.numel():
             continue
         # only a lane with no incumbent (always so at c = 0) runs 40 steps
-        iters = (EVAL_ITERS if c == 0 or _read((solve & full).any())[0]
+        iters = (EVAL_ITERS if c == 0
+                 or _read("candidates.solve", (solve & full).any())[0]
                  else REFINE_ITERS)
         budget = torch.where(full, EVAL_ITERS, REFINE_ITERS)[idx]
         _, h = _bisect(_tree_oracle(inc[idx], ec[idx], ch[idx], x, alpha),
@@ -680,48 +703,50 @@ def _local_search(caps: torch.Tensor, parents: torch.Tensor,
                              stable=True)[:, :A]            # (L, A)
         newc = cpu.gather(1, palt)
         jj = torch.where(running, 0, nok)
-        while _read((jj < nok).any())[0]:
-            valid_a = (aidx >= jj[:, None]) & (aidx < nok[:, None])
-            # one-edge mask update: u's descendants keep their in-subtree
-            # ancestors and adopt the new parent's ancestor chain
-            anc_v = torch.where(
-                (palt >= 1)[:, :, None],
-                bm.transpose(1, 2)[lidx[:, None], (palt - 1).clamp_min(0)],
-                root_onehot)                                # (L, A, D1)
-            pmask = torch.where(
-                dsc[:, None, None, :] > 0,
-                (bm[:, None] * in_sub[:, None, :, None]
-                 + anc_v[..., None]).clamp_max(1.0),
-                bm[:, None])                                # (L, A, D1, d)
-            pec = torch.where(colu_all == u - 1, newc[:, :, None],
-                              ec[:, None, :])               # (L, A, d)
-            pinc = pmask[:, :, 1:, :].reshape(L * A, d, d)
-            pch = _nest(pinc)
-            tq = torch.where(valid_a, (t_cur * PROBE_SLACK)[:, None], 1.0)
-            fq, _ = _tree_feasible(tq.reshape(-1), pinc, pec.reshape(L * A, d),
-                                   x, alpha, pch)
-            fa = fq.view(L, A) & valid_a
-            acc = fa.any(dim=1)
-            jstar = fa.to(torch.uint8).argmax(dim=1)
-            vnew = palt.gather(1, jstar[:, None])[:, 0]
-            parents[:, u] = torch.where(acc, vnew, parents[:, u])
-            bm = torch.where(acc[:, None, None], pmask[lidx, jstar], bm)
-            ec = torch.where(acc[:, None], pec[lidx, jstar], ec)
-            ch = torch.where(acc[:, None, None],
-                             pch.view(L, A, d, d)[lidx, jstar], ch)
-            idx = _lanes(acc)
-            if idx.numel():
-                _, h = _bisect(
-                    _tree_oracle(bm[idx, 1:, :], ec[idx], ch[idx], x, alpha),
-                    torch.zeros_like(t_cur[idx]), t_cur[idx], REFINE_ITERS,
-                    torch.ones_like(idx, dtype=torch.bool))
-                t_cur = t_cur.index_put((idx,), h)
-            improved = improved | acc
-            jj = torch.where(acc, jstar + 1, nok)
+        while _read("local_search.probe", (jj < nok).any())[0]:
+            with spans.span("plan.ftr.local_search.probe"):
+                valid_a = (aidx >= jj[:, None]) & (aidx < nok[:, None])
+                # one-edge mask update: u's descendants keep their in-subtree
+                # ancestors and adopt the new parent's ancestor chain
+                anc_v = torch.where(
+                    (palt >= 1)[:, :, None],
+                    bm.transpose(1, 2)[lidx[:, None], (palt - 1).clamp_min(0)],
+                    root_onehot)                                # (L, A, D1)
+                pmask = torch.where(
+                    dsc[:, None, None, :] > 0,
+                    (bm[:, None] * in_sub[:, None, :, None]
+                     + anc_v[..., None]).clamp_max(1.0),
+                    bm[:, None])                                # (L, A, D1, d)
+                pec = torch.where(colu_all == u - 1, newc[:, :, None],
+                                  ec[:, None, :])               # (L, A, d)
+                pinc = pmask[:, :, 1:, :].reshape(L * A, d, d)
+                pch = _nest(pinc)
+                tq = torch.where(valid_a, (t_cur * PROBE_SLACK)[:, None], 1.0)
+                fq, _ = _tree_feasible(tq.reshape(-1), pinc,
+                                       pec.reshape(L * A, d), x, alpha, pch)
+                fa = fq.view(L, A) & valid_a
+                acc = fa.any(dim=1)
+                jstar = fa.to(torch.uint8).argmax(dim=1)
+                vnew = palt.gather(1, jstar[:, None])[:, 0]
+                parents[:, u] = torch.where(acc, vnew, parents[:, u])
+                bm = torch.where(acc[:, None, None], pmask[lidx, jstar], bm)
+                ec = torch.where(acc[:, None], pec[lidx, jstar], ec)
+                ch = torch.where(acc[:, None, None],
+                                 pch.view(L, A, d, d)[lidx, jstar], ch)
+                idx = _lanes("local_search.lanes", acc)
+                if idx.numel():
+                    _, h = _bisect(
+                        _tree_oracle(bm[idx, 1:, :], ec[idx], ch[idx], x,
+                                     alpha),
+                        torch.zeros_like(t_cur[idx]), t_cur[idx], REFINE_ITERS,
+                        torch.ones_like(idx, dtype=torch.bool))
+                    t_cur = t_cur.index_put((idx,), h)
+                improved = improved | acc
+                jj = torch.where(acc, jstar + 1, nok)
         if s % d == d - 1:
             running = running & improved
             improved = torch.zeros_like(improved)
-            if not _read(running.any())[0]:
+            if not _read("local_search.running", running.any())[0]:
                 break
     return parents, t_cur
 
@@ -743,16 +768,16 @@ def plan_ftr_batch(caps: torch.Tensor, params: CodeParams,
     alpha = params.alpha
     x = torch.tensor(region.x, dtype=F64, device=dev)
     bidx = torch.arange(B, device=dev)
-    with _stage(profile, "tr_seed", dev):
+    with _stage(profile, "ftr", "tr_seed", dev):
         tr_parent, _, _ = _tr_greedy(caps, params.beta, alpha)
-    with _stage(profile, "candidates", dev):
+    with _stage(profile, "ftr", "candidates", dev):
         cands = _ftr_candidates(caps, tr_parent)
         t_cand = _candidate_times(caps, cands, x, alpha)
     order = torch.argsort(t_cand, dim=1, stable=True)
     best_t = t_cand.gather(1, order[:, :1])[:, 0]
     best_par = cands[bidx, order[:, 0]]
     if local_search:
-        with _stage(profile, "local_search", dev):
+        with _stage(profile, "ftr", "local_search", dev):
             top = order[:, :3]
             par_ls = cands[bidx[:, None], top].reshape(B * 3, D1)
             t_ls = t_cand.gather(1, top).reshape(B * 3)
@@ -765,14 +790,14 @@ def plan_ftr_batch(caps: torch.Tensor, params: CodeParams,
                 upd = t_ls[:, s] < best_t
                 best_t = torch.where(upd, t_ls[:, s], best_t)
                 best_par = torch.where(upd[:, None], par_ls[:, s], best_par)
-    with _stage(profile, "final_solve", dev):
+    with _stage(profile, "ftr", "final_solve", dev):
         inc, ec, ch = _tree_arrays(caps, best_par)
         solvable = torch.isfinite(best_t)
         t_star = _tree_optimal_time(inc, ec, ch, x, alpha, FINAL_ITERS,
                                     solvable)
         _, wf = _tree_feasible(torch.where(solvable, t_star, 1.0), inc, ec,
                                x, alpha, ch)
-    with _stage(profile, "witness", dev):
+    with _stage(profile, "ftr", "witness", dev):
         betas = torch.where(solvable[:, None], _level_cut(wf, x), 0.0)
     _count(profile, lanes=B, candidate_trees=cands.shape[1],
            final_solve_iters=FINAL_ITERS)

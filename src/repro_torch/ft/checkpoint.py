@@ -22,6 +22,7 @@ from typing import Any, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..obs import spans
 from .erasure import EncodedGroup, ErasureCoder, TreeSpec, bytes_to_tree, \
     tree_to_bytes
 from .executor import ExecutionReport, execute_regeneration
@@ -59,10 +60,14 @@ class ECCheckpoint:
     # -- save / restore ------------------------------------------------------
 
     def save(self, state: Any, step: int) -> None:
-        buf, self.spec = tree_to_bytes(state, self.device, blocks=self.coder.M)
-        self.group = self.coder.encode(buf, self.hosts,
-                                       payload_bytes=self.spec.total_bytes)
-        self.step = step
+        """Encode ``state`` over the group's hosts (the span ``ckpt.save``,
+        over ``ckpt.flatten`` and ``ckpt.encode``)."""
+        with spans.span("ckpt.save"):
+            buf, self.spec = tree_to_bytes(state, self.device,
+                                           blocks=self.coder.M)
+            self.group = self.coder.encode(
+                buf, self.hosts, payload_bytes=self.spec.total_bytes)
+            self.step = step
 
     def restore(self, from_hosts: Optional[Sequence[int]] = None) -> Any:
         assert self.group is not None and self.spec is not None

@@ -34,6 +34,7 @@ from ..coding import GF8, RLNC, CodedBlocks
 from ..coding.rlnc import Matmul
 from ..core import CodeParams
 from ..device import DeviceLike, resolve_device
+from ..obs import spans
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,8 +124,13 @@ def tree_to_bytes(tree: Any, device: DeviceLike = None, blocks: int = 1
     """The leaves' bytes, in leaf order, in one uint8 buffer on ``device``
     (``cuda`` unless ``"cpu"`` is named), zero-padded to a multiple of
     ``blocks`` bytes (no padding with the default 1).  ``spec.total_bytes``
-    is the unpadded length."""
-    dev = resolve_device(device)
+    is the unpadded length.  The call is the span ``ckpt.flatten``."""
+    with spans.span("ckpt.flatten"):
+        return _tree_to_bytes(tree, resolve_device(device), blocks)
+
+
+def _tree_to_bytes(tree: Any, dev: torch.device, blocks: int
+                   ) -> Tuple[torch.Tensor, TreeSpec]:
     leaves, treedef = tree_flatten(tree)
     tensors = [_as_tensor(leaf) for leaf in leaves]
     sizes = [t.numel() * t.element_size() for t in tensors]
@@ -193,7 +199,13 @@ class ErasureCoder:
         """Encode the uint8 buffer ``buf`` over ``hosts``.  ``payload_bytes``
         is its unpadded length (all of it by default); a buffer already
         padded to M * ceil(payload_bytes / M) bytes, as ``tree_to_bytes``
-        gives with ``blocks=M``, is used without a copy."""
+        gives with ``blocks=M``, is used without a copy.  The call is the
+        span ``ckpt.encode``."""
+        with spans.span("ckpt.encode"):
+            return self._encode(buf, hosts, payload_bytes)
+
+    def _encode(self, buf: torch.Tensor, hosts: Sequence[int],
+                payload_bytes: Optional[int]) -> EncodedGroup:
         assert len(hosts) == self.n
         payload = len(buf) if payload_bytes is None else payload_bytes
         block_bytes = math.ceil(payload / self.M)

@@ -30,6 +30,7 @@ from typing import Tuple
 
 import torch
 
+from ..obs import spans
 from .ref import check_operands
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "gf_matmul.cu"
@@ -225,8 +226,10 @@ def gf_matmul_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
     A (M, K) and B (K, N) must be contiguous uint8 CUDA tensors on one
     device; anything else raises.  The output is allocated here and the
-    kernel runs on that device's current stream.  ``gf_matmul_cuda.launches``
-    counts the launches.
+    kernel runs on that device's current stream.  The counter
+    ``gf.launches`` (``obs.spans``) counts the launches; each is the span
+    ``gf.matmul``, and while the profiler records, CUDA events around the
+    launch alone give the product's device time (``spans.product``).
     """
     check_operands(a, b)
     if a.device.type != "cuda":
@@ -240,16 +243,24 @@ def gf_matmul_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return out
     plan = launch_plan(M, K, N, device_sms(a.device),
                        aligned=operands_aligned(b, out))
+    variant = VARIANTS[plan.variant].name
     lib = library()
-    with torch.cuda.device(a.device):
+    with spans.span("gf.matmul", dict(M=M, K=K, N=N, variant=variant)), \
+            torch.cuda.device(a.device):
+        events = None
+        if spans.on():
+            events = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+            events[0].record()
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.gf256_matmul_launch(a.data_ptr(), b.data_ptr(),
                                       out.data_ptr(), M, K, N, plan.k_pad,
                                       plan.k_chunk, plan.bands, plan.splits,
                                       plan.variant, stream)
+        if events is not None:
+            events[1].record()
     _check(lib, err, f"gf256_matmul launch at (M, K, N) = {(M, K, N)}")
-    gf_matmul_cuda.launches += 1
+    spans.count("gf.launches")
+    if events is not None:
+        spans.product((M, K, N), variant, *events)
     return out
-
-
-gf_matmul_cuda.launches = 0

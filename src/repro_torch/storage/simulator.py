@@ -33,6 +33,7 @@ from ..coding.rlnc import Matmul
 from ..core import (CodeParams, RepairPlan, caps_tensor, get_scheme, plan,
                     plan_many, plans_from_batch)
 from ..device import DeviceLike
+from ..obs import spans
 from .capacities import CapSampler
 
 
@@ -165,8 +166,14 @@ class RlncSimulator:
 
         Fractional betas/flows are ceil-rounded (Section III-C).  For the
         broken RCTREE baseline, flows are the plan's fixed per-edge beta,
-        which is what destroys information at interior nodes.
+        which is what destroys information at interior nodes.  The call is
+        the span ``repair.execute``.
         """
+        with spans.span("repair.execute"):
+            self._execute_plan(plan, failed, provider_ids)
+
+    def _execute_plan(self, plan: RepairPlan, failed: int,
+                      provider_ids: Sequence[int]) -> None:
         alpha = int(round(self.params.alpha))
         idmap = {i: pid for i, pid in enumerate(provider_ids, start=1)}
         children: Dict[int, List[int]] = {}

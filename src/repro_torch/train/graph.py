@@ -17,15 +17,18 @@ without capturing it: the loop's path on the CPU, and the one the tests
 name.  :class:`TrainGraph` runs on CUDA only: its first call is the
 eager step, the warm-up that a capture needs; every later one replays the
 graph.  A failed capture raises: no path falls back to the eager step.
+Its calls are the spans ``train.eager``, ``train.capture`` and
+``train.replay``, and ``release()`` the span ``train.release``
+(``obs.spans``).
 """
 from __future__ import annotations
 
-import time
 from typing import Dict
 
 import torch
 
 from ..models.config import ModelConfig
+from ..obs import spans
 from .optimizer import OptimizerConfig, OptState
 from .step import make_train_step
 
@@ -85,9 +88,7 @@ class TrainGraph(EagerTrainStep):
     (after the batch is copied in); the metrics returned are the graph's
     static outputs.  ``release()`` drops the graph, whose pool keeps the
     step's transient memory between replays (a checkpoint's save or
-    restore needs the room); the next call captures the step again.
-    ``capture_s`` holds the host seconds of each capture and
-    instantiation."""
+    restore needs the room); the next call captures the step again."""
 
     def __init__(self, cfg: ModelConfig, opt_cfg: OptimizerConfig, model,
                  opt_state: OptState, n_micro: int = 1):
@@ -98,7 +99,6 @@ class TrainGraph(EagerTrainStep):
         super().__init__(cfg, opt_cfg, model, opt_state, n_micro)
         self.graph = None
         self.warm = False
-        self.capture_s = []
 
     def _warm_step(self) -> Dict[str, torch.Tensor]:
         main = torch.cuda.current_stream(self.device)
@@ -111,29 +111,30 @@ class TrainGraph(EagerTrainStep):
         return metrics
 
     def _capture(self) -> None:
-        with torch.cuda.device(self.device):
+        with spans.span("train.capture"), torch.cuda.device(self.device):
             self.graph = torch.cuda.CUDAGraph()
-            t0 = time.perf_counter()
             with torch.cuda.graph(self.graph):
                 self.metrics = self._step()
-            self.capture_s.append(time.perf_counter() - t0)
 
     def release(self) -> None:
         """Drop the graph and its static metrics, and free its pool.  The
         pool is freed here, not left to the allocator, which frees it only
         when an allocation fails: at olmo-1b on an H100 a save then took up
         to 6.9 s, against 0.6-1.1 s after the explicit free."""
-        self.graph = None
-        self.metrics = {}
-        torch.cuda.empty_cache()
+        with spans.span("train.release"):
+            self.graph = None
+            self.metrics = {}
+            torch.cuda.empty_cache()
 
     def __call__(self, batch: Dict[str, torch.Tensor]
                  ) -> Dict[str, torch.Tensor]:
         self._load(batch)
         if not self.warm:
-            self.metrics = self._warm_step()
+            with spans.span("train.eager"):
+                self.metrics = self._warm_step()
             return self.metrics
         if self.graph is None:
             self._capture()
-        self.graph.replay()
+        with spans.span("train.replay"):
+            self.graph.replay()
         return self.metrics

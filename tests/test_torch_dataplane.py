@@ -21,7 +21,8 @@ import repro.fleet as ref_fleet
 import repro_torch.core as port_core
 import repro_torch.fleet as port_fleet
 from repro_torch.fleet import dataplane as port_dataplane
-from repro_torch.kernels import gf_matmul_cuda, gf_matmul_ref
+from repro_torch.kernels import gf_matmul_ref
+from repro_torch.obs import spans
 from repro_torch.storage import to_reference_state
 
 P = dict(n=12, k=3, d=6, M=600.0)
@@ -70,7 +71,7 @@ def test_storm_row_default_engine():
     ``dataplane_hot_reads_storm_n16_flexible``), planned by the tier."""
     name = "dataplane_hot_reads_storm_n16_flexible"
     duration = 40 / (2e-3 * 16)
-    launches = gf_matmul_cuda.launches
+    launches = spans.total("gf.launches")
     port, got, ref, expect = _run_both(
         _storm(ref_fleet, duration), _storm(port_fleet, duration),
         "flexible", "auto", _config_seed(0, name))
@@ -92,7 +93,7 @@ def test_storm_row_default_engine():
         for key in ("repair_bytes", "read_bytes"):
             assert p[key] == pytest.approx(r[key], rel=1e-9, abs=0.0)
     _assert_store_bitwise(port.dataplane.store, ref.dataplane.store)
-    assert gf_matmul_cuda.launches == launches == 0
+    assert spans.total("gf.launches") == launches == 0
 
 
 def test_storm_scalar_engine_bitwise():
@@ -161,7 +162,7 @@ def test_matmul_modes_give_the_reference_store(mode):
     combo = [store.nodes[i] for i in (0, 3)]
     got_file = store.rl.reconstruct(combo, int(port.dataplane.mini.M))
     assert torch.equal(got_file, store.file_blocks)
-    assert gf_matmul_cuda.launches == 0
+    assert spans.total("gf.launches") == 0
 
 
 def test_numpy_matmul_refused_on_a_card_store():

@@ -34,7 +34,7 @@ import repro_torch.core as port_core
 import repro_torch.fleet as port_fleet
 import repro_torch.ft as port_ft
 from repro_torch.fleet import policy as port_policy
-from repro_torch.kernels import gf_matmul_cuda
+from repro_torch.obs import spans
 from repro_torch.obs import json_sanitize
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -149,7 +149,7 @@ def test_golden_quick_rows_default_engine(name):
         sc, port_fleet.make_policy(pol), PORT_PARAMS,
         seed=_config_seed(golden["root_seed"], name), device="cpu"))
     assert_summary_close(got, golden["configs"][name], name)
-    assert gf_matmul_cuda.launches == 0
+    assert spans.total("gf.launches") == 0
 
 
 def test_check_shares_oracle_runs_clean():

@@ -20,6 +20,7 @@ from repro.coding.gf import GF8 as REF_GF8
 from repro.kernels.gf_matmul import gf_matmul_pallas
 from repro.kernels.ref import gf_matmul_ref as jnp_gf_matmul_ref
 from repro_torch.kernels import gf_matmul_cuda, ops, ref
+from repro_torch.obs import spans
 
 
 def _rand(m, k, n, seed):
@@ -92,7 +93,7 @@ def test_linearity():
 def test_ops_uses_the_plain_version_on_cpu(monkeypatch):
     """A CPU tensor goes to the plain version; the kernel wrapper is never
     reached, so its launch count stays where it was."""
-    before = gf_matmul_cuda.launches
+    before = spans.total("gf.launches")
 
     def _no_kernel(*_):
         raise AssertionError("CPU tensors must not reach the kernel")
@@ -104,7 +105,7 @@ def test_ops_uses_the_plain_version_on_cpu(monkeypatch):
     np.testing.assert_array_equal(got.numpy(), REF_GF8.matmul(a, b))
     np.testing.assert_array_equal(ops.gf_matmul_numpy(a, b, device="cpu"),
                                   REF_GF8.matmul(a, b))
-    assert gf_matmul_cuda.launches == before == 0
+    assert spans.total("gf.launches") == before == 0
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
@@ -112,7 +113,7 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     a, b = _rand(4, 4, 4, 8)
     with pytest.raises(ValueError, match="CUDA"):
         gf_matmul_cuda(torch.from_numpy(a), torch.from_numpy(b))
-    assert gf_matmul_cuda.launches == 0
+    assert spans.total("gf.launches") == 0
 
 
 @pytest.mark.parametrize("fn", [ops.gf_matmul, ref.gf_matmul_ref,
