@@ -35,6 +35,20 @@ nonzero:
    kernel's own bit-matrix product as a yardstick (``int8_gemm_ms``).  The
    kernel's ``ms`` in the record is the main path's own launches, timed by
    CUDA events around each call.
+   Then the fused attention kernel (``attention_phase``,
+   ``src/repro_torch/kernels/csrc/attention.cu``; ``scripts/
+   attention_phase.py`` runs it alone): built for olmo-1b's head dim
+   (causal; ptxas's registers printed), held to ``chunked_attention`` on
+   the card at olmo-1b's microbatch (2 x 2,048 x 16 heads x 128: output,
+   dQ, dK, dV within 3 bf16 ulps of each one's largest magnitude, and
+   each one's relative RMS error against an fp64 attention at most 1.1
+   times the plain version's), and timed a call forward and backward by
+   CUDA events beside the bound (the causal products' FLOPs at 989e12),
+   ``chunked_attention`` and PyTorch's ``scaled_dot_product_attention``
+   (a yardstick the port never calls).  Its record joins the ``kernels``
+   list; phase 7b fills in the main path's part (``attention_main_path``:
+   the launches and calls counted in a profiled eager olmo-1b step, and
+   the kernel's device ms in a profiled replay).
 4. Bulk planning on the card: ``plan_many`` with the planning tier
    (``repro_torch.core.torch_engine``) at the paper's deployments (Fig. 7:
    MSR n=20 k=5 d=10, B=4096; Fig. 8: the interior point halfway from MSR
@@ -336,6 +350,12 @@ PRODUCT_RTOL = 1e-3                       # every loss and grad norm (seen:
 # model, batch and microbatches); 8b: the dry run of yi-6b x train_4k at
 # 16x16 and 2x16x16 on the host (the other cells, kimi-k2's among them, by
 # hand: ``python -m repro_torch.launch.dryrun --all``, PERF.md)
+ATTN_SHAPE = dict(B=2, S=2048, H=16, KV=16, D=128)   # olmo-1b's microbatch
+ATTN_REPS = 20
+ATTN_ULPS, ATTN_RATIO = 3.0, 1.1  # tests/test_torch_attention.py's gates
+ATTN_COUNTERS = ("attn.fused", "attn.chunked", "attn.launches.forward",
+                 "attn.launches.backward")
+BF16_FLOPS_PER_S = 989e12         # H100 SXM, dense
 SHARD_STEPS = 3
 SHARD_RTOL = 1e-5                         # phase 7b's replay gate
 DRYRUN_CELLS = [("yi-6b", "train_4k", False), ("yi-6b", "train_4k", True)]
@@ -514,6 +534,199 @@ def check_lanes(core, scheme: str, res, nets, params_of, lanes) -> dict:
     return dict(lanes_checked=len(lanes), tie_lanes=len(ties), ties=ties,
                 max_rel_err=max_err,
                 scalar_ms_per_plan=scalar_s / len(lanes) * 1e3)
+
+
+def attention_flops(B: int, S: int, H: int, D: int, causal: bool):
+    """(forward, backward) FLOPs of attention over B x H sequences of S at
+    head dim D: 2 D multiply-adds a (query, key) pair a product, over the
+    pairs the mask keeps (S (S + 1) / 2 causal); the forward's products
+    are QK^T and PV, the backward's dP, dV, dK and dQ (P recomputed is
+    not counted)."""
+    pairs = S * (S + 1) // 2 if causal else S * S
+    product = 2 * B * H * pairs * D
+    return 2 * product, 4 * product
+
+
+def attention_phase(seed: int) -> dict:
+    """The fused attention kernel alone at olmo-1b's microbatch
+    (``ATTN_SHAPE``, causal, random bf16 q, k, v and upstream gradient from
+    ``seed``): its build and ptxas report; its output and dQ, dK, dV
+    against ``chunked_attention``'s on the card by the card tests' two
+    gates (within ``ATTN_ULPS`` bf16 ulps of each one's largest magnitude,
+    and a relative RMS error against an fp64 attention at most
+    ``ATTN_RATIO`` times the plain version's); then the forward (with the
+    records its backward keeps) and the backward (``torch.autograd.
+    grad``), each timed a call by CUDA events over ``ATTN_REPS`` calls,
+    beside the bound (``attention_flops`` at the bf16 peak),
+    ``chunked_attention`` (the plain version) and
+    ``scaled_dot_product_attention`` (the library's yardstick, which the
+    port never calls).  A train step's totals come from the main path
+    (``attention_main_path``)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import attention as kattn
+    from repro_torch.models.layers import chunked_attention
+    from repro_torch.obs import spans
+
+    B, S, H, KV, D = (ATTN_SHAPE[x] for x in ("B", "S", "H", "KV", "D"))
+    t0 = time.perf_counter()
+    path, out = kattn.build(D, True)
+    kattn.library(D, True)
+    build_s = time.perf_counter() - t0
+    log(f"attention kernel: build {build_s:.2f} s -> {path.name}")
+    for line in out.splitlines():
+        if any(w in line for w in ("registers", "spill", "smem")):
+            log("  ptxas:", line.strip())
+
+    dev = torch.device(DEVICE, torch.cuda.current_device())
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def draw(heads):
+        return torch.randn((B, S, heads, D), generator=gen, device=dev,
+                           dtype=torch.bfloat16).requires_grad_(True)
+
+    q, k, v = draw(H), draw(KV), draw(KV)
+    g = torch.randn((B, S, H, D), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    pos = torch.arange(S, device=dev, dtype=torch.int32)
+    routes = {
+        "kernel": lambda: kattn.fused_attention(q, k, v, pos, causal=True),
+        "plain": lambda: chunked_attention(
+            q, k, v, causal=True, q_positions=pos, kv_positions=pos,
+            q_chunk=1024, kv_chunk=2048),
+        "library": lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True).transpose(1, 2)}
+
+    def grads(fn, operands=(q, k, v), grad=g):
+        out = fn(*operands)
+        return [out.detach()] + list(torch.autograd.grad(out, operands, grad))
+
+    def dense64(a, b, c):
+        s = torch.einsum("bqhd,bkhd->bhqk", a, b) / math.sqrt(D)
+        s = s.masked_fill(~(pos[:, None] >= pos[None, :]), -math.inf)
+        return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), c)
+
+    names = ("out", "dq", "dk", "dv")
+    fused = grads(lambda *x: routes["kernel"]())
+    plain = grads(lambda *x: routes["plain"]())
+    ops64 = [t.detach().double().requires_grad_(True) for t in (q, k, v)]
+    exact = grads(dense64, ops64, g.double())
+    del ops64
+    gaps, rms = {}, {}
+    for name, a, b, x in zip(names, fused, plain, exact):
+        ulp = bf16_ulp(float(b.float().abs().max()))
+        gaps[name] = float((a.float() - b.float()).abs().max()) / ulp
+        rms[name] = [float((y.double() - x).norm() / x.norm())
+                     for y in (a, b)]
+    del fused, plain, exact
+    torch.cuda.empty_cache()
+    if not all(map(math.isfinite, gaps.values())) or \
+            max(gaps.values()) > ATTN_ULPS or \
+            any(not ka <= ATTN_RATIO * pa for ka, pa in rms.values()):
+        raise AssertionError(
+            f"kernel against chunked_attention: {gaps} bf16 ulps (gate "
+            f"{ATTN_ULPS}); relative RMS errors against fp64, kernel and "
+            f"plain: {rms} (gate {ATTN_RATIO}x the plain version's)")
+    log("  kernel against chunked_attention: "
+        + ", ".join(f"{n} {x:.2f}" for n, x in gaps.items())
+        + " bf16 ulps of the largest magnitude; relative RMS error against "
+        "fp64, kernel / plain: " + ", ".join(
+            f"{n} {ka:.3e} / {pa:.3e}" for n, (ka, pa) in rms.items()))
+
+    def timed(fn):
+        fwd = cuda_ms(fn, ATTN_REPS)
+        ms = []
+        for _ in range(ATTN_REPS + 1):
+            out = fn()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            torch.autograd.grad(out, (q, k, v), g)
+            e1.record()
+            del out
+            ms.append((e0, e1))
+        torch.cuda.synchronize()
+        return fwd, statistics.median(a.elapsed_time(b) for a, b in ms[1:])
+
+    spans.reset()
+    times = {name: timed(fn) for name, fn in routes.items()}
+    fwd_flops, bwd_flops = attention_flops(B, S, H, D, True)
+    bound = (fwd_flops / BF16_FLOPS_PER_S * 1e3,
+             bwd_flops / BF16_FLOPS_PER_S * 1e3)
+    rec = {
+        "name": "attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/attention.cu",
+        "replaces": None,
+        "shape": dict(ATTN_SHAPE, causal=True),
+        "ulps_from_plain": gaps,
+        "rms_error_kernel_plain": rms,
+        "matches_plain": True,
+        "build_s": build_s,
+        "forward_ms": times["kernel"][0], "backward_ms": times["kernel"][1],
+        "bound_forward_ms": bound[0], "bound_backward_ms": bound[1],
+        "bound_by": "operations",
+        "plain_forward_ms": times["plain"][0],
+        "plain_backward_ms": times["plain"][1],
+        "library_forward_ms": times["library"][0],
+        "library_backward_ms": times["library"][1],
+        "tflops_forward": fwd_flops / times["kernel"][0] / 1e9,
+        "tflops_backward": bwd_flops / times["kernel"][1] / 1e9,
+    }
+    log(f"  a call: forward {rec['forward_ms']:.3f} ms "
+        f"({rec['tflops_forward']:.0f} TFLOP/s; bound {bound[0]:.3f}, plain "
+        f"{times['plain'][0]:.3f}, library {times['library'][0]:.3f}), "
+        f"backward {rec['backward_ms']:.3f} ms ({rec['tflops_backward']:.0f} "
+        f"TFLOP/s; bound {bound[1]:.3f}, plain {times['plain'][1]:.3f}, "
+        f"library {times['library'][1]:.3f})")
+    del q, k, v, g
+    torch.cuda.empty_cache()
+    return rec
+
+
+def attention_main_path(rec: dict, gates: dict) -> None:
+    """Fill in the attention kernel's record (``attention_phase``) from
+    phase 7b's profiled steps of olmo-1b at the same shape: the calls by
+    route and the kernel's launches counted in the eager tensor-core step
+    (a replay runs no Python, so counts nothing), and the kernel's device
+    ms in the replay (``ms``) and in the eager step; beside them, the
+    bound and the per-call times of ``attention_phase`` times the counted
+    launches (``*_from_calls``)."""
+    counted = gates["tensor_cores"]["attention_calls"]
+    launches = {d: counted[f"attn.launches.{d}"]
+                for d in ("forward", "backward")}
+    if counted["attn.chunked"] or not counted["attn.fused"] or \
+            counted["attn.fused"] != launches["forward"]:
+        raise AssertionError(f"the eager olmo-1b step's attention calls "
+                             f"{counted}: not all on the kernel")
+
+    def kernel_ms(run):
+        return gates[run]["profile"]["categories"].get(
+            "attention (fused kernel)", {}).get("ms", 0.0)
+
+    def from_calls(pair):
+        return launches["forward"] * pair[0] + launches["backward"] * pair[1]
+
+    rec.update(
+        launches=launches,
+        step_calls={c: counted[c] for c in ("attn.fused", "attn.chunked")},
+        ms=kernel_ms("graph"), eager_step_ms=kernel_ms("tensor_cores"),
+        bound_ms=from_calls((rec["bound_forward_ms"],
+                             rec["bound_backward_ms"])),
+        ms_from_calls=from_calls((rec["forward_ms"], rec["backward_ms"])),
+        plain_ms_from_calls=from_calls((rec["plain_forward_ms"],
+                                        rec["plain_backward_ms"])),
+        library_ms_from_calls=from_calls((rec["library_forward_ms"],
+                                          rec["library_backward_ms"])))
+    log(f"  attention on the main path: {counted['attn.fused']} fused and "
+        f"{counted['attn.chunked']} chunked calls, {launches['forward']} + "
+        f"{launches['backward']} launches in an eager step; the kernel "
+        f"{rec['ms']:.1f} ms of a replay ({rec['eager_step_ms']:.1f} of the "
+        f"eager step; from the calls' times {rec['ms_from_calls']:.1f}), "
+        f"bound {rec['bound_ms']:.1f}, plain {rec['plain_ms_from_calls']:.1f}"
+        f" and library {rec['library_ms_from_calls']:.1f} from the calls")
 
 
 def planning_phase(seed: int) -> list:
@@ -1497,10 +1710,14 @@ def device_profile(fn) -> dict:
 GEMM_OPS = {"aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm"}
 COPY_OPS = {"aten::copy_", "aten::_to_copy", "aten::clone", "aten::cat",
             "aten::stack", "aten::contiguous"}
-REGIONS = {"chunked_attention": "attention", "chunked_softmax_xent": "loss",
+REGIONS = {"chunked_attention": "attention", "fused_attention": "attention",
+           "chunked_softmax_xent": "loss",
            "_adamw_update": "optimizer", "_adafactor_update": "optimizer",
            "global_norm": "optimizer"}
-CATEGORIES = ("bf16 GEMMs", "fp32 GEMMs", "attention (elementwise and "
+ATTN_KERNELS = ("attn_fwd", "attn_bwd_prep", "attn_bwd_kv", "attn_bwd_q",
+                "attn_bounds")
+CATEGORIES = ("attention (fused kernel)", "bf16 GEMMs", "fp32 GEMMs",
+              "attention (elementwise and "
               "reductions)", "loss", "optimizer", "casts and copies", "other")
 
 
@@ -1568,6 +1785,11 @@ def _category(op, fwd_ops: dict, dtypes: dict) -> str:
     return "other"
 
 
+def _attn_kernel(name: str) -> bool:
+    """Whether a device event is one of the fused attention's kernels."""
+    return any(name.startswith(k) or f"::{k}(" in name for k in ATTN_KERNELS)
+
+
 def step_profile(fn, like=None) -> dict:
     """What one call of ``fn`` ran on the card (``torch.profiler``, CPU and
     CUDA activities, input dtypes recorded, ``labelled_regions`` on): the
@@ -1618,9 +1840,10 @@ def step_profile(fn, like=None) -> dict:
         cats = []
         for k, name in zip(dev, names):
             op = ops.get(k.linked_correlation_id())
-            cats.append("casts and copies" if name.startswith(
-                ("Memcpy", "Memset")) else "unattributed" if op is None
-                else _category(op, fwd_ops, dtypes))
+            cats.append("attention (fused kernel)" if _attn_kernel(name)
+                        else "casts and copies" if name.startswith(
+                            ("Memcpy", "Memset")) else "unattributed"
+                        if op is None else _category(op, fwd_ops, dtypes))
     by_cat = collections.defaultdict(lambda: dict(events=0, ms=0.0))
     top = collections.defaultdict(lambda: collections.defaultdict(float))
     busy, end = 0, None
@@ -2352,7 +2575,8 @@ def train_gates(seed: int) -> dict:
     """Phase 7b's step gates (see the module docstring): olmo-1b at fresh
     weights from ``seed``, ``GATE_STEPS`` steps of phase 7b's batches run
     three ways: eagerly with the plain fp32 products
-    (``layers.on_tensor_cores`` patched to refuse), eagerly with the
+    (``layers.on_tensor_cores`` and ``layers.fused_attention_engages``
+    patched to refuse: chunked attention in fp32 products), eagerly with the
     tensor-core products (``EagerTrainStep``), and through a
     ``TrainGraph`` (its first step eager, then a capture and replays);
     then one more step of each profiled (``step_profile``;
@@ -2361,6 +2585,7 @@ def train_gates(seed: int) -> dict:
 
     from repro_torch.configs import get_config
     from repro_torch.models import init_params, layers
+    from repro_torch.obs import spans
     from repro_torch.train import (DataConfig, EagerTrainStep,
                                    OptimizerConfig, SyntheticLM, TrainGraph,
                                    init_opt)
@@ -2399,8 +2624,11 @@ def train_gates(seed: int) -> dict:
                    base_gib=base / 2**30)
         if cls is TrainGraph:
             rec.update(capture_call_ms=secs[1] * 1e3)
+        before = {c: spans.total(c) for c in ATTN_COUNTERS}
         rec["profile"] = step_profile(lambda: runner(batches[GATE_STEPS]),
                                       like=like)
+        rec["attention_calls"] = {c: spans.total(c) - before[c]
+                                  for c in ATTN_COUNTERS}
         # the profiler slows the host, so the idle share that matters is
         # the busy time's against the unprofiled step
         rec["profile"]["idle_share_of_step"] = (
@@ -2410,7 +2638,9 @@ def train_gates(seed: int) -> dict:
         fresh_peak()
         return rec
 
-    with mock.patch.object(layers, "on_tensor_cores", lambda *a: False):
+    with mock.patch.object(layers, "on_tensor_cores", lambda *a: False), \
+            mock.patch.object(layers, "fused_attention_engages",
+                              lambda *a, **kw: False):
         plain = run(EagerTrainStep)
     eager = run(EagerTrainStep)
     graph = run(TrainGraph, like=eager["profile"])
@@ -2876,6 +3106,8 @@ def main(argv=None) -> int:
         "card": card,
         "shapes": rows,
     }]
+    kernels.append(attention_phase(args.seed))
+    kernels[-1]["card"] = card
     results["kernels"] = kernels
 
     # -- 4. bulk planning through the tier on the card -----------------------
@@ -2920,6 +3152,7 @@ def main(argv=None) -> int:
     results["ft"]["lm_graphs"] = graph_phase(args.seed)
     results["lm_graphs_s"] = time.perf_counter() - t1
     train_rec, kernels[0]["train"] = train_phase(args.seed)
+    attention_main_path(kernels[1], train_rec["gates"])
     results["train"] = dict(serve=serve_rec, train=train_rec)
     results["train_s"] = time.perf_counter() - t0
     log(f"serving and training: {results['train_s']:.1f} s")

@@ -14,7 +14,9 @@ runs ``--steps`` eager steps through ``make_train_step``, each timed by the
 host clock to a synchronize, then profiles one more with
 ``chip_smoke.step_profile`` (the categories are listed there; the idle
 share that counts is the device's busy time against the unprofiled step,
-since the profiler slows the host).  Prints the card, the steps, the
+since the profiler slows the host), counting its attention calls by route
+(``attn.fused``, ``attn.chunked``) and the kernel's launches (a tree
+without these counters reads 0).  Prints the card, the steps, the
 profile's summary and, last, one JSON line.
 """
 from __future__ import annotations
@@ -46,6 +48,7 @@ def main(argv=None) -> int:
     import chip_smoke as cs
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
+    from repro_torch.obs import spans
     from repro_torch.train import (DataConfig, OptimizerConfig, SyntheticLM,
                                    init_opt, make_train_step)
 
@@ -73,7 +76,12 @@ def main(argv=None) -> int:
         print(f"step {step}: {step_ms[-1]:.1f} ms, loss {losses[-1]:.6f}",
               flush=True)
     batch = data.batch_at(args.steps)
+    counters = ("attn.fused", "attn.chunked", "attn.launches.forward",
+                "attn.launches.backward")
+    before = {c: spans.total(c) for c in counters}
     prof = cs.step_profile(lambda: step_fn(model, opt, batch))
+    calls = {c: spans.total(c) - before[c] for c in counters}
+    print("attention calls in the profiled step:", calls, flush=True)
     warm = step_ms[1:] or step_ms
     prof["idle_share_of_step"] = (1 - prof["device_busy_ms"]
                                   / statistics.median(warm))
@@ -86,7 +94,7 @@ def main(argv=None) -> int:
                losses=losses, tokens_per_s=tokens * 1e3 /
                statistics.median(warm),
                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
-               profile=prof)
+               attention_calls=calls, profile=prof)
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(out, indent=1))

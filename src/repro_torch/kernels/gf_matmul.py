@@ -21,31 +21,16 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-import hashlib
-import os
 import pathlib
-import shutil
-import subprocess
 from typing import Tuple
 
 import torch
 
 from ..obs import spans
+from .nvcc import BUILD_DIR, NVCC_FLAGS, build_library
 from .ref import check_operands
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "gf_matmul.cu"
-BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
-        or "/usr/local/cuda"
-    for cand in (os.path.join(home, "bin", "nvcc"), shutil.which("nvcc")):
-        if cand and os.path.isfile(cand):
-            return cand
-    raise RuntimeError(f"nvcc not found under {home} or on PATH")
 
 
 def build() -> Tuple[pathlib.Path, str]:
@@ -55,20 +40,7 @@ def build() -> Tuple[pathlib.Path, str]:
     Returns (library path, compiler output); the output holds ptxas's
     register and shared-memory report, and is empty when nothing was built.
     """
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libgf_matmul_{digest}.so"
-    if lib.exists():
-        return lib, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed to build {SOURCE.name}:\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)   # atomic: a concurrent loader never sees half a file
-    return lib, proc.stdout + proc.stderr
+    return build_library(SOURCE, "libgf_matmul", NVCC_FLAGS, BUILD_DIR)
 
 
 def _check(lib: ctypes.CDLL, err: int, what: str) -> None:

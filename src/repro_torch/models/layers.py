@@ -10,6 +10,13 @@ in plain functions on tensors:
   * ``chunked_attention`` — the online-softmax attention over query and KV
     chunks (Python loops over the chunks), so a long prefill never holds
     the S x S scores: the live tile is (B, KV, G, q_chunk, kv_chunk) fp32;
+  * ``attention`` — the route: a sequence over itself in bf16 on the card
+    (training, prefill) runs on the fused Hopper kernel
+    (``kernels.attention``: the same arithmetic with no score tile in
+    device memory) where ``fused_attention_engages`` holds, everything else
+    (the CPU, fp32, decode over a cache, other head dimensions) on
+    ``chunked_attention``; the counters ``attn.fused`` and ``attn.chunked``
+    (``obs.spans``) count the calls of each route;
   * ``chunked_softmax_xent`` — loops over sequence chunks so only
     (B, chunk, V) logits are ever live.
 
@@ -23,9 +30,10 @@ multiply on the tensor cores in TF32, which holds them exactly.
 The reference's sharding hints stand at its points (``distributed.hints``):
 without an ambient mesh they return their input, so a plain run is what it
 was.  With DTensor inputs every op here runs through DTensor's sharding
-propagation, but for the chunked attention, which runs on each device's
-(batch, kv-head) shards (``batch_local``: its einsums over the flattened
-batch and heads have no DTensor rule once both are sharded); the tensors a
+propagation, but for attention, which runs on each device's (batch,
+kv-head) shards (``batch_local``: the chunked version's einsums over the
+flattened batch and heads have no DTensor rule once both are sharded, and
+the kernel takes plain tensors); the tensors a
 layer makes for itself (rope tables, masks, the loss's sums) join the
 input's mesh as ``Replicate()``, and the online softmax's running max, sum
 and accumulator are made ``*_like`` a tile.
@@ -45,6 +53,8 @@ from torch.distributed.tensor import DTensor
 from ..device import DeviceLike
 from ..distributed.hints import (BATCH, batch_local, gathered, hint,
                                  replicate_like)
+from ..kernels.attention import fused_attention, fused_attention_engages
+from ..obs import spans
 from .config import ModelConfig
 
 _MASK = -1e30
@@ -271,14 +281,9 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with a position past the query's are excluded).  Loops over query
     chunks (outer) and KV chunks (inner); scores, the running max and sum
     and the accumulator are fp32, the probabilities are cast to v's dtype
-    for the value product, as in the reference.
+    for the value product, as in the reference.  DTensor operands reach it
+    through ``attention``, as each device's (batch, kv-head) shards.
     """
-    if isinstance(q, DTensor):      # local to (batch, kv-head) shards
-        heads = "model" if _heads_divide(q, k) else None
-        return batch_local(functools.partial(
-            chunked_attention, causal=causal, q_positions=q_positions,
-            kv_positions=kv_positions, q_chunk=q_chunk, kv_chunk=kv_chunk),
-            q, k, v, spec=(BATCH, None, heads, None))
     B, Sq, H, D = q.shape
     _, Skv, KV, _ = k.shape
     G = H // KV
@@ -323,6 +328,34 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         outs.append((o / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype))
     out = hint(torch.stack(outs), None, BATCH, "model", None, None, None)
     return out.permute(1, 0, 4, 2, 3, 5).reshape(B, Sq, H, D)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool, q_positions: torch.Tensor,
+              kv_positions: torch.Tensor, q_chunk: int, kv_chunk: int,
+              cached: bool) -> torch.Tensor:
+    """``chunked_attention``'s function (same arguments; ``cached`` says k
+    and v are a KV cache), on the fused kernel where
+    ``fused_attention_engages`` holds for these operands (q and k share
+    their positions when ``kv_positions`` is ``q_positions``), else on
+    ``chunked_attention``.  DTensor operands run on each device's (batch,
+    kv-head) shards, on the route their local shards take."""
+    if isinstance(q, DTensor):
+        heads = "model" if _heads_divide(q, k) else None
+        return batch_local(functools.partial(
+            attention, causal=causal, q_positions=q_positions,
+            kv_positions=kv_positions, q_chunk=q_chunk, kv_chunk=kv_chunk,
+            cached=cached), q, k, v, spec=(BATCH, None, heads, None))
+    if fused_attention_engages(
+            q.device, (q.dtype, k.dtype, v.dtype), q.shape[-1], q.shape[1],
+            cached=cached, self_attention=kv_positions is q_positions
+            and k.shape[1] == q.shape[1]):
+        spans.count("attn.fused")
+        return fused_attention(q, k, v, q_positions, causal=causal)
+    spans.count("attn.chunked")
+    return chunked_attention(q, k, v, causal=causal, q_positions=q_positions,
+                             kv_positions=kv_positions, q_chunk=q_chunk,
+                             kv_chunk=kv_chunk)
 
 
 # ---------------------------------------------------------------------------
@@ -428,15 +461,13 @@ class Attention(nn.Module):
             new_cache = (kc, vc)
             kv_pos = torch.arange(kc.shape[1], dtype=torch.int32,
                                   device=positions.device)
-            out = chunked_attention(q, kc, vc, causal=True,
-                                    q_positions=positions,
-                                    kv_positions=kv_pos,
-                                    q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+            out = attention(q, kc, vc, causal=True, q_positions=positions,
+                            kv_positions=kv_pos, q_chunk=cfg.q_chunk,
+                            kv_chunk=cfg.kv_chunk, cached=True)
         else:
-            out = chunked_attention(q, k, v, causal=cfg.causal,
-                                    q_positions=positions,
-                                    kv_positions=positions,
-                                    q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+            out = attention(q, k, v, causal=cfg.causal, q_positions=positions,
+                            kv_positions=positions, q_chunk=cfg.q_chunk,
+                            kv_chunk=cfg.kv_chunk, cached=False)
             if cache_index is not None:  # prefill: hand back k/v for a cache
                 new_cache = (k, v)
         y = torch.einsum("bshk,hkd->bsd", out, self.wo.to(c))

@@ -20,3 +20,8 @@ if importlib.util.find_spec("hypothesis") is None:
                                 "import hypothesis"))
                for line in p.read_text(encoding="utf-8").splitlines())
     )
+
+
+def pytest_configure(config):
+    config.addinivalue_line("markers",
+                            "chip: needs a CUDA card; skips without one")
