@@ -45,10 +45,14 @@ nonzero:
    times the plain version's), and timed a call forward and backward by
    CUDA events beside the bound (the causal products' FLOPs at 989e12),
    ``chunked_attention`` and PyTorch's ``scaled_dot_product_attention``
-   (a yardstick the port never calls).  Its record joins the ``kernels``
-   list; phase 7b fills in the main path's part (``attention_main_path``:
-   the launches and calls counted in a profiled eager olmo-1b step, and
-   the kernel's device ms in a profiled replay).
+   (a yardstick the port never calls).  The same two gates then hold it
+   at OLMoE's microbatch (2 x 4,096 x 16 heads x 128, causal) on q and k
+   that went through QK-norm (a weighted RMSNorm over all heads' features,
+   then RoPE), as ``MoEShareConfig``'s attention feeds it.  Its record
+   joins the ``kernels`` list; phase 7b fills in the main path's part
+   (``attention_main_path``: the launches and calls counted in a profiled
+   eager olmo-1b step, and the kernel's device ms in a profiled replay),
+   and phase 7c the OLMoE step's.
 4. Bulk planning on the card: ``plan_many`` with the planning tier
    (``repro_torch.core.torch_engine``) at the paper's deployments (Fig. 7:
    MSR n=20 k=5 d=10, B=4096; Fig. 8: the interior point halfway from MSR
@@ -223,6 +227,25 @@ nonzero:
       reserved GiB, the graph's capture ms, and one more step of each
       profiled (``step_profile``: device ms by category, kernels, the
       device's idle share of the call) are recorded.
+   c. OLMoE-1B-7B's expert share at the benchmark's configuration
+      (``perfbench/configs/olmoe-1b-7b-ec8.json``: 8 layers, 16 of 64
+      experts held, 1,146,685,440 parameters; ``moe_main_path``), random
+      weights from ``--seed``, AdamW with fp32 moments, one batch of 4 x
+      4,096 tokens in 2 microbatches: an eager step, then, with every
+      counter reset, one profiled eager step (``EagerTrainStep``).  Every
+      attention call must take the fused kernel (8 layers x 2
+      microbatches x the forward and its recomputation: 32, none
+      chunked), no (token, held expert) pair may drop, and the held pairs
+      must lie within 1 to 4 a token and layer; the calls by route, the
+      kernel's launches, the grouped products' launches and the GF
+      kernel's (none in a step) are recorded.  Then the state (weights,
+      moments, step; 11.47 GB) is saved with the configuration's coder
+      (n=8, k=4, d=6, 16 blocks a host) and restored from k hosts without
+      host 0: every leaf must equal the saved one byte for byte, and the
+      GF kernel's launches, zeroed first, must rise.  The attention
+      kernel's entry of ``kernels`` takes the step's counts
+      (``olmoe_step``), the GF kernel's the save's and restore's
+      (``olmoe_state``).
 
 8. Sharding (``repro_torch.distributed``, ``repro_torch.launch``):
 
@@ -351,11 +374,18 @@ PRODUCT_RTOL = 1e-3                       # every loss and grad norm (seen:
 # 16x16 and 2x16x16 on the host (the other cells, kimi-k2's among them, by
 # hand: ``python -m repro_torch.launch.dryrun --all``, PERF.md)
 ATTN_SHAPE = dict(B=2, S=2048, H=16, KV=16, D=128)   # olmo-1b's microbatch
+ATTN_SHAPE_OLMOE = dict(B=2, S=4096, H=16, KV=16, D=128)  # OLMoE's, QK-normed
 ATTN_REPS = 20
 ATTN_ULPS, ATTN_RATIO = 3.0, 1.1  # tests/test_torch_attention.py's gates
 ATTN_COUNTERS = ("attn.fused", "attn.chunked", "attn.launches.forward",
                  "attn.launches.backward")
 BF16_FLOPS_PER_S = 989e12         # H100 SXM, dense
+# phase 7c: the benchmark's OLMoE share (its model, optimizer, batch and
+# checkpoint); a step's attention calls: layers x microbatches x 2 (the
+# forward and its recomputation)
+MOE_CONFIG = "perfbench/configs/olmoe-1b-7b-ec8.json"
+MOE_COUNTERS = ATTN_COUNTERS + ("moe.launches", "gf.launches")
+MOE_PAIRS = (1.0, 4.0)            # held pairs a token and layer (about 2)
 SHARD_STEPS = 3
 SHARD_RTOL = 1e-5                         # phase 7b's replay gate
 DRYRUN_CELLS = [("yi-6b", "train_4k", False), ("yi-6b", "train_4k", True)]
@@ -560,8 +590,10 @@ def attention_phase(seed: int) -> dict:
     beside the bound (``attention_flops`` at the bf16 peak),
     ``chunked_attention`` (the plain version) and
     ``scaled_dot_product_attention`` (the library's yardstick, which the
-    port never calls).  A train step's totals come from the main path
-    (``attention_main_path``)."""
+    port never calls).  Then the same gates at OLMoE's microbatch
+    (``ATTN_SHAPE_OLMOE``) on QK-normed q and k (``attention_inputs``),
+    under ``olmoe_shape``.  A train step's totals come from the main path
+    (``attention_main_path``, ``moe_main_path``)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import attention as kattn
@@ -578,18 +610,8 @@ def attention_phase(seed: int) -> dict:
         if any(w in line for w in ("registers", "spill", "smem")):
             log("  ptxas:", line.strip())
 
-    dev = torch.device(DEVICE, torch.cuda.current_device())
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
-
-    def draw(heads):
-        return torch.randn((B, S, heads, D), generator=gen, device=dev,
-                           dtype=torch.bfloat16).requires_grad_(True)
-
-    q, k, v = draw(H), draw(KV), draw(KV)
-    g = torch.randn((B, S, H, D), generator=gen, device=dev,
-                    dtype=torch.bfloat16)
-    pos = torch.arange(S, device=dev, dtype=torch.int32)
+    q, k, v, g, pos = attention_inputs(ATTN_SHAPE, seed)
+    gaps, rms = attention_gates(q, k, v, g, pos, "olmo-1b's microbatch")
     routes = {
         "kernel": lambda: kattn.fused_attention(q, k, v, pos, causal=True),
         "plain": lambda: chunked_attention(
@@ -598,42 +620,6 @@ def attention_phase(seed: int) -> dict:
         "library": lambda: F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             is_causal=True).transpose(1, 2)}
-
-    def grads(fn, operands=(q, k, v), grad=g):
-        out = fn(*operands)
-        return [out.detach()] + list(torch.autograd.grad(out, operands, grad))
-
-    def dense64(a, b, c):
-        s = torch.einsum("bqhd,bkhd->bhqk", a, b) / math.sqrt(D)
-        s = s.masked_fill(~(pos[:, None] >= pos[None, :]), -math.inf)
-        return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), c)
-
-    names = ("out", "dq", "dk", "dv")
-    fused = grads(lambda *x: routes["kernel"]())
-    plain = grads(lambda *x: routes["plain"]())
-    ops64 = [t.detach().double().requires_grad_(True) for t in (q, k, v)]
-    exact = grads(dense64, ops64, g.double())
-    del ops64
-    gaps, rms = {}, {}
-    for name, a, b, x in zip(names, fused, plain, exact):
-        ulp = bf16_ulp(float(b.float().abs().max()))
-        gaps[name] = float((a.float() - b.float()).abs().max()) / ulp
-        rms[name] = [float((y.double() - x).norm() / x.norm())
-                     for y in (a, b)]
-    del fused, plain, exact
-    torch.cuda.empty_cache()
-    if not all(map(math.isfinite, gaps.values())) or \
-            max(gaps.values()) > ATTN_ULPS or \
-            any(not ka <= ATTN_RATIO * pa for ka, pa in rms.values()):
-        raise AssertionError(
-            f"kernel against chunked_attention: {gaps} bf16 ulps (gate "
-            f"{ATTN_ULPS}); relative RMS errors against fp64, kernel and "
-            f"plain: {rms} (gate {ATTN_RATIO}x the plain version's)")
-    log("  kernel against chunked_attention: "
-        + ", ".join(f"{n} {x:.2f}" for n, x in gaps.items())
-        + " bf16 ulps of the largest magnitude; relative RMS error against "
-        "fp64, kernel / plain: " + ", ".join(
-            f"{n} {ka:.3e} / {pa:.3e}" for n, (ka, pa) in rms.items()))
 
     def timed(fn):
         fwd = cuda_ms(fn, ATTN_REPS)
@@ -681,9 +667,106 @@ def attention_phase(seed: int) -> dict:
         f"backward {rec['backward_ms']:.3f} ms ({rec['tflops_backward']:.0f} "
         f"TFLOP/s; bound {bound[1]:.3f}, plain {times['plain'][1]:.3f}, "
         f"library {times['library'][1]:.3f})")
+    del q, k, v, g, routes
+    torch.cuda.empty_cache()
+    q, k, v, g, pos = attention_inputs(ATTN_SHAPE_OLMOE, seed + 1,
+                                       qk_norm=True)
+    olmoe = attention_gates(q, k, v, g, pos, "OLMoE's QK-normed microbatch")
+    rec["olmoe_shape"] = {"shape": dict(ATTN_SHAPE_OLMOE, causal=True,
+                                        qk_norm=True),
+                          "ulps_from_plain": olmoe[0],
+                          "rms_error_kernel_plain": olmoe[1]}
     del q, k, v, g
     torch.cuda.empty_cache()
     return rec
+
+
+def attention_inputs(shape: dict, seed: int, qk_norm: bool = False):
+    """Causal attention operands of ``shape`` on the card from ``seed``:
+    bf16 q, k, v (B, S, heads, D) needing gradients, the upstream gradient
+    and positions 0..S-1.  With ``qk_norm``, q and k are as OLMoE's
+    attention makes them: normal projections through a weighted RMSNorm
+    over all heads' features (scales 1 + 0.1 N(0, 1), eps 1e-5), then
+    RoPE (theta 10,000)."""
+    from repro_torch.models.layers import apply_norm, rope
+
+    B, S, H, KV, D = (shape[x] for x in ("B", "S", "H", "KV", "D"))
+    dev = torch.device(DEVICE, torch.cuda.current_device())
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    pos = torch.arange(S, device=dev, dtype=torch.int32)
+
+    def draw(heads, normed=False):
+        if not normed:
+            x = torch.randn((B, S, heads, D), generator=gen, device=dev,
+                            dtype=torch.bfloat16)
+        else:
+            x = torch.randn((B, S, heads * D), generator=gen, device=dev,
+                            dtype=torch.bfloat16)
+            scale = (1.0 + 0.1 * torch.randn(heads * D, generator=gen,
+                                              device=dev)).bfloat16()
+            x = rope(apply_norm("rmsnorm", x, scale, eps=1e-5)
+                     .reshape(B, S, heads, D), pos, 10000.0)
+        return x.detach().requires_grad_(True)
+
+    q, k, v = draw(H, qk_norm), draw(KV, qk_norm), draw(KV)
+    g = torch.randn((B, S, H, D), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    return q, k, v, g, pos
+
+
+def attention_gates(q, k, v, g, pos, label: str):
+    """The fused kernel's output and dQ, dK, dV against
+    ``chunked_attention``'s on the same causal operands, by the card
+    tests' two gates: within ``ATTN_ULPS`` bf16 ulps of each one's largest
+    magnitude, and a relative RMS error against an fp64 attention at most
+    ``ATTN_RATIO`` times the plain version's.  Returns (ulps, [kernel's,
+    plain's RMS error]) by name; raises if a gate fails."""
+    from repro_torch.kernels import attention as kattn
+    from repro_torch.models.layers import chunked_attention
+
+    D = q.shape[-1]
+
+    def grads(fn, operands=(q, k, v), grad=g):
+        out = fn(*operands)
+        return [out.detach()] + list(torch.autograd.grad(out, operands, grad))
+
+    def dense64(a, b, c):
+        s = torch.einsum("bqhd,bkhd->bhqk", a, b) / math.sqrt(D)
+        s = s.masked_fill(~(pos[:, None] >= pos[None, :]), -math.inf)
+        return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), c)
+
+    names = ("out", "dq", "dk", "dv")
+    fused = grads(lambda *x: kattn.fused_attention(q, k, v, pos,
+                                                   causal=True))
+    plain = grads(lambda *x: chunked_attention(
+        q, k, v, causal=True, q_positions=pos, kv_positions=pos,
+        q_chunk=1024, kv_chunk=2048))
+    ops64 = [t.detach().double().requires_grad_(True) for t in (q, k, v)]
+    exact = grads(dense64, ops64, g.double())
+    del ops64
+    gaps, rms = {}, {}
+    for name, a, b, x in zip(names, fused, plain, exact):
+        ulp = bf16_ulp(float(b.float().abs().max()))
+        gaps[name] = float((a.float() - b.float()).abs().max()) / ulp
+        rms[name] = [float((y.double() - x).norm() / x.norm())
+                     for y in (a, b)]
+    del fused, plain, exact
+    torch.cuda.empty_cache()
+    if not all(map(math.isfinite, gaps.values())) or \
+            max(gaps.values()) > ATTN_ULPS or \
+            any(not ka <= ATTN_RATIO * pa for ka, pa in rms.values()):
+        raise AssertionError(
+            f"kernel against chunked_attention at {label}: {gaps} bf16 ulps "
+            f"(gate {ATTN_ULPS}); relative RMS errors against fp64, kernel "
+            f"and plain: {rms} (gate {ATTN_RATIO}x the plain version's)")
+    log(f"  kernel against chunked_attention at {label} "
+        f"{tuple(q.shape)}: " + ", ".join(f"{n} {x:.2f}"
+                                         for n, x in gaps.items())
+        + " bf16 ulps of the largest magnitude; relative RMS error against "
+        "fp64, kernel / plain: " + ", ".join(
+            f"{n} {ka:.3e} / {pa:.3e}" for n, (ka, pa) in rms.items()))
+    return gaps, rms
 
 
 def attention_main_path(rec: dict, gates: dict) -> None:
@@ -727,6 +810,114 @@ def attention_main_path(rec: dict, gates: dict) -> None:
         f"eager step; from the calls' times {rec['ms_from_calls']:.1f}), "
         f"bound {rec['bound_ms']:.1f}, plain {rec['plain_ms_from_calls']:.1f}"
         f" and library {rec['library_ms_from_calls']:.1f} from the calls")
+
+
+def moe_main_path(seed: int, root: pathlib.Path) -> dict:
+    """Phase 7c (see the module docstring): OLMoE's expert share at the
+    benchmark's configuration (``MOE_CONFIG``), its profiled eager step's
+    counts, then its state saved and restored through the GF(2^8)
+    kernel.  Returns the record: ``step`` (the counters of the profiled
+    step, the held pairs, the profile's summary) and ``state`` (bytes,
+    launches, times, peak)."""
+    from repro_torch.ft import ECCheckpoint, ErasureCoder, Fleet, FleetConfig
+    from repro_torch.ft.erasure import tree_flatten
+    from repro_torch.ft.walkthrough import same_bytes
+    from repro_torch.models import MoEShareConfig, init_params
+    from repro_torch.obs import spans
+    from repro_torch.train import EagerTrainStep, OptimizerConfig, init_opt
+
+    conf = json.loads((root / MOE_CONFIG).read_text())
+    mdl, ck = conf["model"], conf["checkpoint"]
+    cfg = MoEShareConfig(**mdl)
+    dev = torch.device(DEVICE, torch.cuda.current_device())
+    opt_cfg = OptimizerConfig(**conf["optimizer"])
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    B, S = conf["batch"], conf["seq_len"]
+    tokens = torch.randint(0, cfg.vocab_size, (2, B, S), generator=gen,
+                           device=dev, dtype=torch.int32)
+    batch = {"tokens": tokens[0], "labels": tokens[1]}
+    base = fresh_peak()
+    model = init_params(cfg, seed, device=dev)
+    opt = init_opt(opt_cfg, model, device=dev)
+    step = EagerTrainStep(cfg, opt_cfg, model, opt, n_micro=conf["n_micro"])
+    first = float(step(batch)["loss"])
+    spans.reset()
+    prof = step_profile(lambda: step(batch))
+    counts = {c: spans.total(c) for c in MOE_COUNTERS}
+    pairs = spans.device_total("moe.pairs")
+    dropped = spans.device_total("moe.dropped")
+    per_token = pairs / (B * S * cfg.num_layers)
+    calls = cfg.num_layers * conf["n_micro"] * (2 if cfg.remat else 1)
+    if counts["attn.fused"] != calls or counts["attn.chunked"] or \
+            counts["attn.launches.forward"] != calls or dropped or \
+            counts["gf.launches"] or \
+            not MOE_PAIRS[0] <= per_token <= MOE_PAIRS[1]:
+        raise AssertionError(
+            f"the OLMoE step: counters {counts} (want {calls} fused "
+            f"attention calls and launches, none chunked, no GF launch), "
+            f"{dropped} pairs dropped, {per_token:.3f} held pairs a token "
+            f"and layer (want {MOE_PAIRS})")
+    del prof["order"]
+    rec = {"step": dict(counts, pairs=pairs, dropped=dropped,
+                        pairs_per_token_layer=per_token, first_loss=first,
+                        profile=prof,
+                        peak_gib=(torch.cuda.max_memory_allocated() - base)
+                        / 2**30)}
+    log(f"  OLMoE share ({cfg.param_count()} parameters, "
+        f"{cfg.num_experts} of {cfg.router_experts} experts held), a "
+        f"profiled eager step: {counts['attn.fused']} fused and "
+        f"{counts['attn.chunked']} chunked attention calls, "
+        f"{counts['attn.launches.forward']} + "
+        f"{counts['attn.launches.backward']} launches, "
+        f"{counts['moe.launches']} grouped products, {counts['gf.launches']} "
+        f"GF launches; {per_token:.4f} held pairs a token and layer, "
+        f"{dropped} dropped")
+    log(profile_line("  OLMoE eager step profile", prof))
+    del step
+
+    state = {"params": model.state_dict(), "m": dict(opt.m),
+             "v": dict(opt.v), "opt_step": opt.step,
+             "step": torch.tensor(1, dtype=torch.int32, device=dev)}
+    want, _ = tree_flatten(state)
+    coder = ErasureCoder(n=ck["n"], k=ck["k"], d=ck["d"],
+                         blocks_per_host=ck["blocks_per_host"], seed=seed,
+                         device=dev)
+    ckpt = ECCheckpoint(Fleet(FleetConfig(**ck["fleet"]), seed=seed), coder,
+                        ck["hosts"], seed=seed)
+    launch0 = kernel_launches()
+    t0 = time.perf_counter()
+    ckpt.save(state, step=1)
+    torch.cuda.synchronize()
+    save_s = time.perf_counter() - t0
+    save_launches = kernel_launches() - launch0
+    hosts = ck["hosts"][1:ck["k"] + 1]
+    t0 = time.perf_counter()
+    restored = ckpt.restore(hosts)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    got, _ = tree_flatten(restored)
+    launches = kernel_launches() - launch0
+    if save_launches <= 0 or launches <= save_launches or \
+            len(got) != len(want) or \
+            not all(same_bytes(a, b) for a, b in zip(want, got)):
+        raise AssertionError(f"the OLMoE state through the checkpoint: "
+                             f"{save_launches} and {launches} launches, "
+                             f"restore from {hosts} not the saved bytes")
+    rec["state"] = dict(bytes=ckpt.spec.total_bytes, leaves=len(want),
+                        M=coder.M, block_bytes=ckpt.group.block_bytes,
+                        save_s=save_s, save_launches=save_launches,
+                        restore_hosts=hosts, restore_s=restore_s,
+                        launches=launches,
+                        peak_gib=(torch.cuda.max_memory_allocated() - base)
+                        / 2**30)
+    log(f"  OLMoE state: {ckpt.spec.total_bytes} B ({len(want)} leaves) "
+        f"saved in {save_s:.3f} s ({save_launches} GF launches), restored "
+        f"from hosts {hosts} in {restore_s:.3f} s bit for bit ({launches} "
+        f"launches in all); peak {rec['state']['peak_gib']:.2f} GiB")
+    del state, restored, got, want, ckpt, coder, model, opt
+    fresh_peak()
+    return rec
 
 
 def planning_phase(seed: int) -> list:
@@ -1823,10 +2014,14 @@ def step_profile(fn, like=None) -> dict:
     # kineto's own events: a device event's linked correlation id is the
     # id of the CPU op that launched it, and a CPU op's input dtypes are
     # there (torch 2.11's FunctionEvents carry neither)
-    # (the ``region:`` ranges also appear on the device's timeline, as
-    # spans around their kernels: left out)
+    # (the ``region:`` ranges and the program's spans (``obs.spans``)
+    # also appear on the device's timeline, as spans around their
+    # kernels: left out)
+    from repro_torch.obs import spans
+    ranges = set(spans.summary()["spans"])
     dev = sorted((k for k in kineto if k.device_type() == cuda
-                  and not k.name().startswith("region:")),
+                  and not k.name().startswith("region:")
+                  and k.name() not in ranges),
                  key=lambda k: k.start_ns())
     names = [k.name() for k in dev]
     if like is not None:
@@ -3153,7 +3348,10 @@ def main(argv=None) -> int:
     results["lm_graphs_s"] = time.perf_counter() - t1
     train_rec, kernels[0]["train"] = train_phase(args.seed)
     attention_main_path(kernels[1], train_rec["gates"])
-    results["train"] = dict(serve=serve_rec, train=train_rec)
+    moe_rec = moe_main_path(args.seed, root)
+    kernels[1]["olmoe_step"] = {c: moe_rec["step"][c] for c in MOE_COUNTERS}
+    kernels[0]["olmoe_state"] = moe_rec["state"]
+    results["train"] = dict(serve=serve_rec, train=train_rec, moe=moe_rec)
     results["train_s"] = time.perf_counter() - t0
     log(f"serving and training: {results['train_s']:.1f} s")
 

@@ -1,5 +1,13 @@
 """olmoe-1b-7b [moe]: 16L d_model=2048 16H (kv=16) expert d_ff=1024
-vocab=50304; 64 experts top-8 [arXiv:2409.02060; hf]."""
+vocab=50304; 64 experts top-8 [arXiv:2409.02060; hf].
+
+This configuration mirrors the reference package's: its MoE is
+``models.moe.MoE``, capacity-routed (pairs past 1.25 T K / E drop) with
+renormalised top-k gates, and it has no QK-norm and no router losses.
+The published OLMoE (dropless, unrenormalised gates, QK-norm, the
+load-balancing and z losses) runs through ``models.MoEShareConfig``; the
+benchmark's ``perfbench/configs/olmoe-1b-7b-ec8.json`` trains a device's
+share of it."""
 from repro_torch.models.config import ModelConfig
 
 

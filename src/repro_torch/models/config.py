@@ -164,6 +164,53 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MoEShareConfig(ModelConfig):
+    """A dropless MoE model with OLMoE's layer (arXiv:2409.02060), of which
+    this device holds a share of every layer's experts: the ``num_experts``
+    experts from ``expert_offset`` on, of the router's ``router_experts``.
+
+    Beside :class:`ModelConfig`'s fields, which the ten reference
+    configurations carry and this one shares:
+      * gating: an fp32 softmax over all ``router_experts`` logits, then
+        the top ``experts_per_token`` probabilities as they are (no
+        renormalisation); every (token, held expert) pair is computed
+        (``moe_capacity_factor`` is not read; ``models.moe.MoEShare``);
+      * QK-norm, always (``qk_norm``, a class constant, not a field): a
+        weighted RMSNorm over the whole projected q and the whole
+        projected k, before RoPE;
+      * parametric norms with epsilon ``norm_eps``;
+      * the router's losses, added to the cross entropy: the load-balancing
+        loss ``lb_weight`` * sum over layers of E * sum_e f_e * P_e, and
+        the z-loss ``z_weight`` * sum over layers of mean(logsumexp^2)
+        (``models.transformer.loss_terms``).
+    """
+    router_experts: int = 64
+    expert_offset: int = 0
+    norm_eps: float = 1e-5
+    lb_weight: float = 0.01
+    z_weight: float = 0.001
+    qk_norm = True
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.family != "moe" or self.norm != "rmsnorm":
+            raise ValueError("an expert share is of an rmsnorm moe model")
+        last = self.expert_offset + self.num_experts
+        if self.expert_offset < 0 or last > self.router_experts:
+            raise ValueError(f"experts {self.expert_offset}..{last - 1} are "
+                             f"not among the router's {self.router_experts}")
+        if self.experts_per_token > self.router_experts:
+            raise ValueError("more experts a token than the router has")
+
+    def param_count(self) -> int:
+        """The parameters held here: :meth:`ModelConfig.param_count` with
+        the router at its full width and the QK-norms' scales."""
+        qk = (self.num_heads + self.num_kv_heads) * self.head_dim
+        return super().param_count() + self.num_layers * (
+            self.d_model * (self.router_experts - self.num_experts) + qk)
+
+
+@dataclasses.dataclass(frozen=True)
 class ShapeConfig:
     """One input-shape cell (assigned per architecture)."""
 

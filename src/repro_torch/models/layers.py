@@ -160,11 +160,13 @@ def fp32_product(a: torch.Tensor, b: torch.Tensor, eq: Optional[str] = None,
 
 class Norm(nn.Module):
     """rmsnorm (``scale``), layernorm (``scale``, ``bias``) or nonparam_ln
-    (no parameters)."""
+    (no parameters); the epsilon is the configuration's ``norm_eps`` where
+    it has one (``MoEShareConfig``), else ``apply_norm``'s."""
 
     def __init__(self, cfg: ModelConfig, device: DeviceLike = None):
         super().__init__()
         self.kind = cfg.norm
+        self.eps = getattr(cfg, "norm_eps", None)
         if self.kind != "nonparam_ln":
             self.scale = param((cfg.d_model,), dt(cfg, "param"), device)
         if self.kind == "layernorm":
@@ -178,19 +180,23 @@ class Norm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return apply_norm(self.kind, x, getattr(self, "scale", None),
-                          getattr(self, "bias", None))
+                          getattr(self, "bias", None), self.eps)
 
 
 def apply_norm(kind: str, x: torch.Tensor, scale: Optional[torch.Tensor],
-               bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+               bias: Optional[torch.Tensor] = None,
+               eps: Optional[float] = None) -> torch.Tensor:
+    """Over the last dimension, in fp32, cast back to x's dtype; ``eps``
+    defaults to the reference's 1e-6 (rmsnorm) and 1e-5 (the others)."""
     xf = x.float()
     if kind == "rmsnorm":
-        y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + 1e-6)
+        y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True)
+                             + (1e-6 if eps is None else eps))
         y = y * scale.float()
     else:
         mu = torch.mean(xf, dim=-1, keepdim=True)
         var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
-        y = (xf - mu) * torch.rsqrt(var + 1e-5)
+        y = (xf - mu) * torch.rsqrt(var + (1e-5 if eps is None else eps))
         if kind == "layernorm":
             y = y * scale.float() + bias.float()
         # nonparam_ln (olmo): no affine parameters
@@ -377,7 +383,20 @@ def _project_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bsd,dhk->bshk", x, w)
 
 
+def _qk_norm(x: torch.Tensor, scale: torch.Tensor, eps: float
+             ) -> torch.Tensor:
+    """x (B, S, heads, hd): an RMSNorm over all heads' features together."""
+    B, S, n, hd = x.shape
+    return apply_norm("rmsnorm", x.reshape(B, S, n * hd), scale, eps=eps) \
+        .reshape(B, S, n, hd)
+
+
 class Attention(nn.Module):
+    """GQA attention.  For a configuration with ``qk_norm`` (an expert
+    share, ``MoEShareConfig``), OLMoE's QK-norm: a weighted RMSNorm
+    (``q_norm``, ``k_norm``) over the whole projected q and the whole
+    projected k, before RoPE."""
+
     def __init__(self, cfg: ModelConfig, device: DeviceLike = None):
         super().__init__()
         d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -391,6 +410,10 @@ class Attention(nn.Module):
             self.bq = param((H, hd), pd, device)
             self.bk = param((KV, hd), pd, device)
             self.bv = param((KV, hd), pd, device)
+        self.qk_norm = getattr(cfg, "qk_norm", False)
+        if self.qk_norm:
+            self.q_norm = param((H * hd,), pd, device)
+            self.k_norm = param((KV * hd,), pd, device)
 
     def reset(self, gen: torch.Generator) -> None:
         cfg = self.cfg
@@ -402,6 +425,9 @@ class Attention(nn.Module):
         if cfg.qkv_bias:
             for b in (self.bq, self.bk, self.bv):
                 b.zero_()
+        if self.qk_norm:
+            self.q_norm.fill_(1.0)
+            self.k_norm.fill_(1.0)
 
     def qkv(self, x: torch.Tensor, positions: torch.Tensor
             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -415,6 +441,9 @@ class Attention(nn.Module):
             q = q + self.bq.to(c)
             k = k + self.bk.to(c)
             v = v + self.bv.to(c)
+        if self.qk_norm:
+            q = _qk_norm(q, self.q_norm, self.cfg.norm_eps)
+            k = _qk_norm(k, self.k_norm, self.cfg.norm_eps)
         q = hint(q, BATCH, None, "model", None)
         k = hint(k, BATCH, None, "model", None)
         v = hint(v, BATCH, None, "model", None)

@@ -5,7 +5,10 @@ One block module per layer in a ``ModuleList``, applied in a Python loop
 (the reference stacks the layers' parameters and scans them):
 
   * dense / vlm / audio : [norm -> GQA attention] + [norm -> SwiGLU]
-  * moe                 : [norm -> GQA attention] + [norm -> top-k MoE]
+  * moe                 : [norm -> GQA attention] + [norm -> top-k MoE];
+                          an expert share (``MoEShareConfig``): QK-norm in
+                          the attention and ``moe.MoEShare``, whose router
+                          losses ``loss_terms`` adds to the cross entropy
   * ssm                 : [norm -> Mamba2/SSD]
   * hybrid (zamba2)     : the ssm stack; after every ``shared_attn_every``
                           layers one of ``num_shared_blocks`` weight-shared
@@ -48,10 +51,11 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..device import DeviceLike, resolve_device
 from ..distributed.hints import BATCH, hint
-from .config import ModelConfig
+from ..obs import spans
+from .config import ModelConfig, MoEShareConfig
 from .layers import (MLP, Attention, Embed, Norm, chunked_softmax_xent, dt,
                      logits_last, param)
-from .moe import MoE
+from .moe import MoE, MoEShare
 from .ssd import SSD, apply_ssd, ssd_step
 
 Index = Union[int, torch.Tensor]
@@ -67,7 +71,8 @@ class AttnBlock(nn.Module):
         self.attn = Attention(cfg, device)
         self.norm2 = Norm(cfg, device)
         if moe:
-            self.moe = MoE(cfg, device)
+            self.moe = (MoEShare if isinstance(cfg, MoEShareConfig)
+                        else MoE)(cfg, device)
         else:
             self.mlp = MLP(cfg, device)
 
@@ -83,6 +88,14 @@ class AttnBlock(nn.Module):
         h = hint(h + a_out, BATCH, seq, None)
         ffn = self.moe if hasattr(self, "moe") else self.mlp
         return hint(h + ffn(self.norm2(h)), BATCH, seq, None), new_cache
+
+    def forward_stats(self, h, positions):
+        """A training forward of an expert share's block: (h, the router's
+        losses, the pair counts) (``MoEShare.forward_stats``)."""
+        a_out, _ = self.attn(self.norm1(h), positions=positions)
+        h = h + a_out
+        y, aux, counts = self.moe.forward_stats(self.norm2(h))
+        return h + y, aux, counts
 
 
 class SSDBlock(nn.Module):
@@ -241,14 +254,23 @@ def forward_hidden(cfg: ModelConfig, model: Transformer, h: torch.Tensor, *,
                    positions: torch.Tensor,
                    cache: Optional[Dict[str, torch.Tensor]] = None,
                    cache_index: Optional[Index] = None,
+                   stats: Optional[list] = None,
                    ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Run the blocks.  ``cache`` semantics:
       * None + cache_index None        -> training forward
       * cache buffers + cache_index    -> decode (or prefill seeding when the
         sequence is longer than one token and cache_index == 0)
-    The cache is updated in place and returned."""
+    The cache is updated in place and returned.  ``stats`` (a list, for
+    an expert share's training forward) receives each block's router
+    losses and pair counts (``AttnBlock.forward_stats``)."""
     fam = cfg.family
     remat = cfg.remat and cache is None and torch.is_grad_enabled()
+    if stats is not None:
+        for blk in model.blocks:
+            fn = functools.partial(blk.forward_stats, positions=positions)
+            h, aux, counts = _remat(cfg, fn, h) if remat else fn(h)
+            stats.append((aux, counts))
+        return h, cache
     if fam in ("dense", "moe", "vlm", "audio"):
         for i, blk in enumerate(model.blocks):
             if remat:
@@ -279,8 +301,33 @@ def forward_hidden(cfg: ModelConfig, model: Transformer, h: torch.Tensor, *,
 # public entry points (loss / prefill / decode)
 # ---------------------------------------------------------------------------
 
+def loss_terms(cfg: ModelConfig, model: Transformer, batch: Dict[str, Any]
+               ) -> Dict[str, torch.Tensor]:
+    """The training loss and its parts: ``{"loss": loss_fn(...)}``, and for
+    an expert share (``MoEShareConfig``) ``loss`` = ``xent`` + lb_weight *
+    ``lb_loss`` + z_weight * ``z_loss``, the router's losses summed over the
+    layers.  A share's held pairs computed and dropped are added to the
+    device counters ``moe.pairs`` and ``moe.dropped`` (``obs.spans``)."""
+    if not isinstance(cfg, MoEShareConfig):
+        return {"loss": loss_fn(cfg, model, batch)}
+    h = embed_inputs(cfg, model, batch)
+    positions = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
+    stats = []
+    h, _ = forward_hidden(cfg, model, h, positions=positions, stats=stats)
+    xent = chunked_softmax_xent(cfg, model.embed, model.final_norm(h),
+                                batch["labels"])
+    aux = torch.stack([a for a, _ in stats]).sum(0)
+    counts = torch.stack([c for _, c in stats]).sum(0)
+    spans.count_on_device("moe.pairs", counts[0])
+    spans.count_on_device("moe.dropped", counts[1])
+    return {"loss": xent + cfg.lb_weight * aux[0] + cfg.z_weight * aux[1],
+            "xent": xent, "lb_loss": aux[0], "z_loss": aux[1]}
+
+
 def loss_fn(cfg: ModelConfig, model: Transformer, batch: Dict[str, Any]
             ) -> torch.Tensor:
+    if isinstance(cfg, MoEShareConfig):
+        return loss_terms(cfg, model, batch)["loss"]
     h = hint(embed_inputs(cfg, model, batch), BATCH, None, None)
     S = h.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=h.device)

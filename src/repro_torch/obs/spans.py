@@ -23,6 +23,21 @@ while the profiler records, to a traced total beside it.  The GF(2^8)
 kernel's dispatcher hands ``product`` the CUDA events it records around
 each launch while profiling, with the product's shape.
 
+Two more kinds serve a step that runs as a CUDA graph, whose replay runs
+no Python and so opens no span:
+
+* ``count_on_device(name, n)`` adds a 0-d integer tensor to a total that
+  stays on the device (``device_total`` reads it on the host, after the
+  work): a replay adds again, and the step reads nothing on the host;
+* ``timed(name, fn, x)``, while ``time_device(True)`` is in force, brackets
+  ``fn(x)``'s forward with CUDA events and its backward with two more,
+  recorded by autograd when the gradient reaches its output and when it
+  leaves its input.  The events are ``external``, so a capture takes them
+  into the graph and every replay records them again; ``device_ms``
+  sums the kept pairs (the forward's at once, the backward's once it has
+  run), ``clear_device_times`` drops them (before a capture, so that
+  the pairs are the graph's).
+
 ``summary()`` returns a JSON-ready view; ``reset()`` clears it.  The state
 is the process's, like the profiler's; spans assume one thread opens them.
 """
@@ -42,6 +57,10 @@ _spans: Dict[str, List[float]] = {}          # name -> [calls, s, self s]
 _open: List["_Span"] = []
 _pending: List[tuple] = []                   # (key, start, end) events
 _products: Dict[Tuple[int, int, int, str], List[float]] = {}  # [calls, s]
+_device: Dict[str, torch.Tensor] = {}        # name -> 0-d int64 total
+_times: Dict[str, List[tuple]] = {}          # name -> [(start, end), ...]
+_alive: List["torch.cuda.Event"] = []        # every event since the clear
+_timing = False
 
 
 def on() -> bool:
@@ -130,7 +149,111 @@ def summary() -> dict:
     }
 
 
+def count_on_device(name: str, n: torch.Tensor) -> None:
+    """Add the 0-d integer tensor ``n`` to the device total ``name``, with
+    no host read.  The total is made at its first call, which may not lie
+    inside a CUDA graph's capture (the graph's memory is not the
+    total's): an eager step comes first."""
+    t = _device.get(name)
+    if t is None or t.device != n.device:
+        if n.device.type == "cuda" and \
+                torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"device counter {name!r} first counted "
+                               f"inside a CUDA graph's capture")
+        t = _device[name] = torch.zeros((), dtype=torch.int64,
+                                        device=n.device)
+    t.add_(n)
+
+
+def device_total(name: str) -> int:
+    """The device total's value (a host read: after the work)."""
+    t = _device.get(name)
+    return 0 if t is None else int(t)
+
+
+def time_device(enabled: bool) -> None:
+    """Whether ``timed`` records CUDA events (decided when the work is
+    enqueued or captured)."""
+    global _timing
+    _timing = bool(enabled)
+
+
+class _Mark(torch.autograd.Function):
+    """The identity, recording a CUDA event when its gradient passes; the
+    input's mark also keeps the backward's pair of events.  The output's
+    mark saves an empty tensor, so that under remat
+    (``torch.utils.checkpoint``) the region is recomputed before its event
+    is recorded, and the recomputation (timed as a forward) stays out of
+    the backward's pair."""
+
+    @staticmethod
+    def forward(ctx, x, name, start, end):
+        ctx.name, ctx.start, ctx.end = name, start, end
+        if start is None:
+            ctx.save_for_backward(x.new_empty(0))
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.start is None:           # the output's mark: the start
+            ctx.saved_tensors
+            ctx.end.record()
+        else:                           # the input's: the end, and keep
+            ctx.end.record()
+            _times.setdefault(ctx.name, []).append((ctx.start, ctx.end))
+        return g, None, None, None
+
+
+def timed(name: str, fn, x: torch.Tensor):
+    """``fn(x)`` (a tensor or a tuple whose first item is the region's
+    output), its device time kept under ``name`` while ``time_device`` is
+    on and ``x`` lies on CUDA: a pair of events around the forward, and,
+    where ``x`` needs a gradient, a pair around the backward."""
+    if not _timing or x.device.type != "cuda":
+        return fn(x)
+
+    def event():
+        # kept until ``clear_device_times``: a graph's capture may hold an
+        # event that no pair keeps (a recomputation that remat stops early),
+        # and an event freed before the capture ends breaks it
+        ev = torch.cuda.Event(enable_timing=True, external=True)
+        _alive.append(ev)
+        return ev
+    back = x.requires_grad and torch.is_grad_enabled()
+    if back:
+        b0, b1 = event(), event()
+        x = _Mark.apply(x, name, b0, b1)
+    f0, f1 = event(), event()
+    f0.record()
+    out = fn(x)
+    f1.record()
+    _times.setdefault(name, []).append((f0, f1))
+    if back:
+        first = out[0] if isinstance(out, tuple) else out
+        first = _Mark.apply(first, name, None, b0)
+        out = (first,) + tuple(out[1:]) if isinstance(out, tuple) else first
+    return out
+
+
+def device_ms(name: str) -> float:
+    """Milliseconds of every kept pair of ``name``'s events, summed (after
+    the work has run: a host read)."""
+    total = 0.0
+    for a, b in _times.get(name, []):
+        b.synchronize()
+        total += a.elapsed_time(b)
+    return total
+
+
+def clear_device_times() -> None:
+    """Drop the kept events (a graph captured after this keeps its own;
+    one captured before must have been released)."""
+    _times.clear()
+    _alive.clear()
+
+
 def reset() -> None:
-    """Clear every tally, total and product."""
-    for store in (_totals, _traced, _spans, _pending, _products):
+    """Clear every tally, total, product, device total and event."""
+    for store in (_totals, _traced, _spans, _pending, _products, _device,
+                  _times, _alive):
         store.clear()

@@ -112,7 +112,9 @@ def train(model_cfg: ModelConfig, data_cfg: DataConfig,
         loss = float(metrics["loss"])
         losses.append(loss)
         if step % loop_cfg.log_every == 0:
-            log(f"step {step:4d} loss {loss:.4f} "
+            parts = "".join(f"{k} {float(metrics[k]):.4f} " for k in
+                            ("lb_loss", "z_loss") if k in metrics)
+            log(f"step {step:4d} loss {loss:.4f} {parts}"
                 f"gnorm {float(metrics['grad_norm']):.3f} "
                 f"dt {time.perf_counter() - t0:.2f}s")
         del metrics

@@ -19,7 +19,7 @@ from torch import nn
 from torch.distributed.tensor import DTensor, Replicate
 
 from ..models import decode_step as model_decode
-from ..models import loss_fn as model_loss
+from ..models import loss_terms as model_loss_terms
 from ..models import prefill as model_prefill
 from ..models.config import ModelConfig
 from ..models.layers import _DTYPES
@@ -87,7 +87,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, n_micro: int = 1,
     divided by ``n_micro`` in fp32, then ``apply_updates`` (in place).
     Metrics: ``loss`` (mean over microbatches), ``grad_norm`` (of the
     averaged gradients) and ``step``, as plain 0-d tensors on the model's
-    device.
+    device; an expert share's loss parts (``models.loss_terms``: ``xent``,
+    ``lb_loss``, ``z_loss``) beside them, each a mean over microbatches.
 
     ``grad_shardings``: {parameter name: placements} (``distributed.
     param_shardings``) for a model whose parameters are DTensors.  Each
@@ -133,11 +134,12 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, n_micro: int = 1,
                 return g
             return g.redistribute(g.device_mesh, grad_shardings[name])
 
-        loss_sum = None
+        sums = {}
         with torch.enable_grad(), (_swapped(model, compute) if gather
                                    else contextlib.nullcontext()):
             for mb in _split_microbatches(batch, n_micro):
-                loss = model_loss(cfg, model, mb)
+                terms = model_loss_terms(cfg, model, mb)
+                loss = terms["loss"]
                 loss.backward()
                 with torch.no_grad():
                     for n, p in compute.items():
@@ -148,18 +150,19 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, n_micro: int = 1,
                         else:
                             acc[n] = p.grad.to(gdt)
                         p.grad = None
-                loss = loss.detach()
-                loss_sum = loss if loss_sum is None else loss_sum + loss
-                del loss
+                for k, v in terms.items():
+                    v = v.detach()
+                    sums[k] = v if k not in sums else sums[k] + v
+                del loss, terms
         # the update reads gradients in the parameters' layout
         grads = {n: constrain(a.float().div_(n_micro), n)
                  for n, a in acc.items()}
         del acc, compute
         model, new_opt, gnorm = _apply_updates(opt_cfg, model, grads,
                                                opt_state)
-        loss = loss_sum / n_micro
-        metrics = {"loss": _plain(loss), "grad_norm": _plain(gnorm),
-                   "step": new_opt.step}
+        metrics = {"loss": _plain(sums.pop("loss") / n_micro),
+                   "grad_norm": _plain(gnorm), "step": new_opt.step}
+        metrics.update((k, _plain(v / n_micro)) for k, v in sums.items())
         return model, new_opt, metrics
 
     return train_step
