@@ -226,7 +226,19 @@ nonzero:
       rtol 1e-3 of theirs at every step; step ms, tokens/s, peak and
       reserved GiB, the graph's capture ms, and one more step of each
       profiled (``step_profile``: device ms by category, kernels, the
-      device's idle share of the call) are recorded.
+      device's idle share of the call) are recorded; each eager profiled
+      step must count one fused AdamW call of two launches and no plain
+      one (``optim.fused``, ``optim.launches``, ``optim.plain``).  Then
+      the fused AdamW alone (``optimizer_phase``) at olmo-1b's leaves
+      (bf16 parameters, fp32 accumulators and moments, drawn at step 9,
+      n_micro 2): against the plain update run at the kernel's clip, m and
+      v within 2 fp32 ulps and each parameter within 1 ulp of its dtype;
+      the norm within 1e-5 of the plain version's (fp32 sums; the fp64
+      norm recorded); a CUDA graph of the call, replayed, bitwise the
+      eager call; the kernel's events within 1.5x its bytes bound (28 B a
+      parameter); the plain version's whole route and
+      ``torch.optim.AdamW(fused=True)`` over fp32 copies (a yardstick the
+      port never calls) timed beside it.
    c. OLMoE-1B-7B's expert share at the benchmark's configuration
       (``perfbench/configs/olmoe-1b-7b-ec8.json``: 8 layers, 16 of 64
       experts held, 1,146,685,440 parameters; ``moe_main_path``), random
@@ -245,7 +257,11 @@ nonzero:
       GF kernel's launches, zeroed first, must rise.  The attention
       kernel's entry of ``kernels`` takes the step's counts
       (``olmoe_step``), the GF kernel's the save's and restore's
-      (``olmoe_state``).
+      (``olmoe_state``).  The profiled step must count one fused AdamW
+      call of two launches and no plain one; then ``optimizer_phase`` at
+      the share's leaves (bf16, the router fp32), with 7b's gates.  The
+      ``kernels`` record's ``adamw`` entry holds both and the optimizer's
+      ms in 7b's profiled eager step and replay.
 
 8. Sharding (``repro_torch.distributed``, ``repro_torch.launch``):
 
@@ -386,6 +402,20 @@ BF16_FLOPS_PER_S = 989e12         # H100 SXM, dense
 MOE_CONFIG = "perfbench/configs/olmoe-1b-7b-ec8.json"
 MOE_COUNTERS = ATTN_COUNTERS + ("moe.launches", "gf.launches")
 MOE_PAIRS = (1.0, 4.0)            # held pairs a token and layer (about 2)
+# phases 7b and 7c: the fused AdamW (kernels/csrc/adamw.cu) at the train
+# configurations' leaves, against the plain update run at the kernel's
+# clip: m and v within 2 fp32 ulps, each parameter within 1 ulp of its
+# dtype (the same arithmetic; powf may round the bias corrections
+# otherwise), the norm within 1e-5 of the plain version's (fp32 sums); its
+# own events within 1.5x the bytes bound; a profiled eager step one fused
+# call of two launches, no plain one
+OPTIM_COUNTERS = ("optim.fused", "optim.plain", "optim.launches")
+OPTIM_STEP = {"optim.fused": 1, "optim.plain": 0, "optim.launches": 2}
+OPTIM_ULPS = dict(m=2.0, v=2.0, p=1.0)
+OPTIM_NORM_RTOL = 1e-5
+OPTIM_BOUND_RATIO = 1.5
+OPTIM_REPS = 5
+OPTIM_KERNELS = ("adamw_sumsq", "adamw_update")
 SHARD_STEPS = 3
 SHARD_RTOL = 1e-5                         # phase 7b's replay gate
 DRYRUN_CELLS = [("yi-6b", "train_4k", False), ("yi-6b", "train_4k", True)]
@@ -844,7 +874,7 @@ def moe_main_path(seed: int, root: pathlib.Path) -> dict:
     first = float(step(batch)["loss"])
     spans.reset()
     prof = step_profile(lambda: step(batch))
-    counts = {c: spans.total(c) for c in MOE_COUNTERS}
+    counts = {c: spans.total(c) for c in MOE_COUNTERS + OPTIM_COUNTERS}
     pairs = spans.device_total("moe.pairs")
     dropped = spans.device_total("moe.dropped")
     per_token = pairs / (B * S * cfg.num_layers)
@@ -852,10 +882,12 @@ def moe_main_path(seed: int, root: pathlib.Path) -> dict:
     if counts["attn.fused"] != calls or counts["attn.chunked"] or \
             counts["attn.launches.forward"] != calls or dropped or \
             counts["gf.launches"] or \
+            {c: counts[c] for c in OPTIM_COUNTERS} != OPTIM_STEP or \
             not MOE_PAIRS[0] <= per_token <= MOE_PAIRS[1]:
         raise AssertionError(
             f"the OLMoE step: counters {counts} (want {calls} fused "
-            f"attention calls and launches, none chunked, no GF launch), "
+            f"attention calls and launches, none chunked, no GF launch, "
+            f"the optimizer's {OPTIM_STEP}), "
             f"{dropped} pairs dropped, {per_token:.3f} held pairs a token "
             f"and layer (want {MOE_PAIRS})")
     del prof["order"]
@@ -871,7 +903,10 @@ def moe_main_path(seed: int, root: pathlib.Path) -> dict:
         f"{counts['attn.launches.forward']} + "
         f"{counts['attn.launches.backward']} launches, "
         f"{counts['moe.launches']} grouped products, {counts['gf.launches']} "
-        f"GF launches; {per_token:.4f} held pairs a token and layer, "
+        f"GF launches, {counts['optim.fused']} fused AdamW call of "
+        f"{counts['optim.launches']} launches "
+        f"({counts['optim.plain']} plain); {per_token:.4f} held pairs a "
+        f"token and layer, "
         f"{dropped} dropped")
     log(profile_line("  OLMoE eager step profile", prof))
     del step
@@ -917,6 +952,168 @@ def moe_main_path(seed: int, root: pathlib.Path) -> dict:
         f"launches in all); peak {rec['state']['peak_gib']:.2f} GiB")
     del state, restored, got, want, ckpt, coder, model, opt
     fresh_peak()
+    return rec
+
+
+def optimizer_phase(seed: int, cfg, opt_cfg, n_micro: int) -> dict:
+    """Phases 7b and 7c's fused AdamW (see the module docstring) at the
+    leaves of ``cfg`` (its parameters' shapes and dtypes, ``opt_cfg``'s
+    moments and accumulators), drawn on the card from ``seed`` at step 9:
+    the kernel's call against the plain update at the kernel's clip and
+    against the plain version's norm and an fp64 norm; a captured replay
+    bitwise the eager call; the kernel's events beside its bytes bound,
+    the plain version (its whole route: division, norm, update) and
+    ``torch.optim.AdamW(fused=True)`` over fp32 copies of the leaves (a
+    yardstick the port never calls: no clip, no norm, the same 28 B a
+    parameter).  Returns the record."""
+    from repro_torch.kernels import adamw as kadamw
+    from repro_torch.models import Transformer
+    from repro_torch.obs import spans
+    from repro_torch.train import optimizer as optmod
+
+    dev = torch.device(DEVICE, torch.cuda.current_device())
+    gdt = getattr(torch, opt_cfg.grad_dtype)
+    sdt = getattr(torch, opt_cfg.state_dtype)
+    leaves = [(n, tuple(p.shape), p.dtype) for n, p in
+              Transformer(cfg, "meta", allow_meta=True).named_parameters()]
+    count = sum(math.prod(shape) for _, shape, _ in leaves)
+    size = {torch.float32: 4, torch.bfloat16: 2}
+    nbytes = sum(math.prod(shape) * 2 * (size[gdt] + 2 * size[sdt] + size[d])
+                 for _, shape, d in leaves)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    base = fresh_peak()
+
+    def draw():
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+
+        def normal(shape, dtype, scale, square=False):
+            x = torch.randn(shape, generator=gen, device=dev) * scale
+            return (x * x if square else x).to(dtype)
+
+        params = {n: normal(s, d, 0.02) for n, s, d in leaves}
+        acc = {n: normal(s, gdt, 0.02) for n, s, _ in leaves}
+        state = optmod.OptState(
+            step=torch.full((), 9, dtype=torch.int32, device=dev),
+            m={n: normal(s, sdt, 1e-3) for n, s, _ in leaves},
+            v={n: normal(s, sdt, 1e-3, square=True) for n, s, _ in leaves})
+        return params, acc, state
+
+    def worst_ulps(got, want):
+        exp = torch.frexp(want.float().abs())[1]
+        bits = 8 if want.dtype == torch.bfloat16 else 24
+        ulp = torch.ldexp(torch.ones_like(exp, dtype=torch.float32),
+                          exp - bits)
+        return float(((got.float() - want.float()).abs() / ulp).max())
+
+    def ulps(a, b):
+        return {key: max(worst_ulps(x, y) for x, y in pairs) for key, pairs in
+                (("m", [(a[2].m[n], b[2].m[n]) for n in a[0]]),
+                 ("v", [(a[2].v[n], b[2].v[n]) for n in a[0]]),
+                 ("p", [(a[0][n], b[0][n]) for n in a[0]]))}
+
+    def fused_call(run, fused):
+        return optmod._fused_update(opt_cfg, run[0], run[1], run[2],
+                                    opt_cfg.lr, n_micro, fused)
+
+    t0 = time.perf_counter()
+    _, build_out = kadamw.build()
+    kadamw.library()
+    build_s = time.perf_counter() - t0
+    ptxas = [line.strip() for line in build_out.splitlines()
+             if any(w in line for w in ("registers", "spill"))]
+    fused = kadamw.FusedAdamW()
+    eager = draw()
+    launch0 = spans.total("optim.launches")
+    norm = fused_call(eager, fused)
+    launches = spans.total("optim.launches") - launch0
+    # the plain update at the kernel's clip: the same arithmetic
+    plain = draw()
+    grads = {n: a.float().div_(n_micro) for n, a in plain[1].items()}
+    clip = torch.clamp(opt_cfg.grad_clip / (norm + 1e-9), max=1.0)
+    optmod._adamw_update(opt_cfg, plain[0], grads, plain[2], opt_cfg.lr,
+                         clip)
+    plain_norm = float(optmod.global_norm(list(grads.values())))
+    exact_norm = float(torch.sqrt(sum(torch.sum(g.double() ** 2)
+                                      for g in grads.values())))
+    gaps = ulps(eager, plain)
+    del plain, grads
+    # the plain version's whole route, its own norm: recorded
+    plain = draw()
+    own_norm = float(optmod._plain_update(opt_cfg, plain[0], plain[1],
+                                          plain[2], opt_cfg.lr, n_micro))
+    own_gaps = ulps(eager, plain)
+    plain_ms = cuda_ms(lambda: optmod._plain_update(
+        opt_cfg, plain[0], plain[1], plain[2], opt_cfg.lr, n_micro), 2)
+    del plain
+    # a captured replay against the eager call
+    replayed = draw()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replay_norm = fused_call(replayed, fused)
+    graph.replay()
+    torch.cuda.synchronize()
+    bitwise = bool(torch.equal(replay_norm, norm)) and all(
+        torch.equal(replayed[0][n], eager[0][n])
+        and torch.equal(replayed[2].m[n], eager[2].m[n])
+        and torch.equal(replayed[2].v[n], eager[2].v[n]) for n in eager[0])
+    ms = cuda_ms(lambda: fused_call(replayed, fused), OPTIM_REPS)
+    replay_ms = cuda_ms(graph.replay, OPTIM_REPS)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    del graph, replayed, eager
+    fresh_peak()
+    # the library's yardstick over fp32 copies of the leaves
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    weights = []
+    for _, shape, _ in leaves:
+        w = torch.nn.Parameter(torch.randn(shape, generator=gen, device=dev)
+                               * 0.02)
+        w.grad = torch.randn(shape, generator=gen, device=dev) * 0.02
+        weights.append(w)
+    lib_opt = torch.optim.AdamW(weights, lr=opt_cfg.lr,
+                                betas=(opt_cfg.b1, opt_cfg.b2),
+                                eps=opt_cfg.eps,
+                                weight_decay=opt_cfg.weight_decay, fused=True)
+    library_ms = cuda_ms(lib_opt.step, OPTIM_REPS)
+    del lib_opt, weights
+    fresh_peak()
+
+    norm_gap = abs(float(norm) - plain_norm) / plain_norm
+    rec = dict(arch=cfg.name, params=count, tensors=len(leaves),
+               n_micro=n_micro, dtypes=dict(
+                   params=sorted({str(d) for _, _, d in leaves}),
+                   moments=str(sdt), grads=str(gdt)),
+               build_s=build_s, ptxas=ptxas, launches=launches,
+               norm=float(norm), plain_norm=plain_norm, exact_norm=exact_norm,
+               norm_rel_gap=norm_gap,
+               exact_rel_gap=abs(float(norm) - exact_norm) / exact_norm,
+               clip=float(clip), ulps=gaps, plain_route_norm=own_norm,
+               plain_route_ulps=own_gaps, graph_bitwise=bitwise, ms=ms,
+               replay_ms=replay_ms, bytes=nbytes, bound_ms=bound_ms,
+               plain_ms=plain_ms, library_ms=library_ms, peak_gib=peak)
+    log(f"  fused AdamW at {cfg.name}'s {len(leaves)} leaves ({count} "
+        f"parameters, n_micro {n_micro}): build {build_s:.2f} s; "
+        f"{launches} launches; norm {float(norm):.9g} (plain "
+        f"{plain_norm:.9g}, fp64 {exact_norm:.9g}), clip {float(clip):.6g};"
+        f" against the plain update at its clip, ulps m {gaps['m']:.2f} v "
+        f"{gaps['v']:.2f} p {gaps['p']:.2f} (the plain route at its own "
+        f"norm: m {own_gaps['m']:.2f} v {own_gaps['v']:.2f} p "
+        f"{own_gaps['p']:.2f}); replay "
+        f"{'bitwise equal to' if bitwise else 'NOT equal to'} the eager "
+        f"call; {ms:.3f} ms a call by its events ({replay_ms:.3f} replayed)"
+        f", bound {bound_ms:.3f} ms ({nbytes} B), plain {plain_ms:.3f} ms, "
+        f"torch.optim.AdamW(fused=True) {library_ms:.3f} ms; peak "
+        f"{peak:.2f} GiB")
+    for line in ptxas:
+        log("    ptxas:", line)
+    bad = [key for key, lim in OPTIM_ULPS.items() if gaps[key] > lim]
+    if bad or norm_gap > OPTIM_NORM_RTOL or not bitwise or \
+            launches != 2 * len(kadamw.chunk_map([math.prod(s) for _, s, _
+                                                 in leaves])) or \
+            ms > OPTIM_BOUND_RATIO * bound_ms:
+        raise AssertionError(f"the fused AdamW at {cfg.name}: {rec}")
     return rec
 
 
@@ -1904,7 +2101,7 @@ COPY_OPS = {"aten::copy_", "aten::_to_copy", "aten::clone", "aten::cat",
 REGIONS = {"chunked_attention": "attention", "fused_attention": "attention",
            "chunked_softmax_xent": "loss",
            "_adamw_update": "optimizer", "_adafactor_update": "optimizer",
-           "global_norm": "optimizer"}
+           "global_norm": "optimizer", "_fused_update": "optimizer"}
 ATTN_KERNELS = ("attn_fwd", "attn_bwd_prep", "attn_bwd_kv", "attn_bwd_q",
                 "attn_bounds")
 CATEGORIES = ("attention (fused kernel)", "bf16 GEMMs", "fp32 GEMMs",
@@ -1981,6 +2178,12 @@ def _attn_kernel(name: str) -> bool:
     return any(name.startswith(k) or f"::{k}(" in name for k in ATTN_KERNELS)
 
 
+def _optim_kernel(name: str) -> bool:
+    """Whether a device event is one of the fused AdamW's kernels."""
+    return any(name.startswith(k) or f"::{k}(" in name
+               for k in OPTIM_KERNELS)
+
+
 def step_profile(fn, like=None) -> dict:
     """What one call of ``fn`` ran on the card (``torch.profiler``, CPU and
     CUDA activities, input dtypes recorded, ``labelled_regions`` on): the
@@ -2036,6 +2239,7 @@ def step_profile(fn, like=None) -> dict:
         for k, name in zip(dev, names):
             op = ops.get(k.linked_correlation_id())
             cats.append("attention (fused kernel)" if _attn_kernel(name)
+                        else "optimizer" if _optim_kernel(name)
                         else "casts and copies" if name.startswith(
                             ("Memcpy", "Memset")) else "unattributed"
                         if op is None else _category(op, fwd_ops, dtypes))
@@ -2819,11 +3023,17 @@ def train_gates(seed: int) -> dict:
                    base_gib=base / 2**30)
         if cls is TrainGraph:
             rec.update(capture_call_ms=secs[1] * 1e3)
-        before = {c: spans.total(c) for c in ATTN_COUNTERS}
+        before = {c: spans.total(c) for c in ATTN_COUNTERS + OPTIM_COUNTERS}
         rec["profile"] = step_profile(lambda: runner(batches[GATE_STEPS]),
                                       like=like)
         rec["attention_calls"] = {c: spans.total(c) - before[c]
                                   for c in ATTN_COUNTERS}
+        rec["optimizer_calls"] = {c: spans.total(c) - before[c]
+                                  for c in OPTIM_COUNTERS}
+        if cls is not TrainGraph and rec["optimizer_calls"] != OPTIM_STEP:
+            raise AssertionError(f"the eager step's optimizer: "
+                                 f"{rec['optimizer_calls']}, want "
+                                 f"{OPTIM_STEP}")
         # the profiler slows the host, so the idle share that matters is
         # the busy time's against the unprofiled step
         rec["profile"]["idle_share_of_step"] = (
@@ -3348,9 +3558,29 @@ def main(argv=None) -> int:
     results["lm_graphs_s"] = time.perf_counter() - t1
     train_rec, kernels[0]["train"] = train_phase(args.seed)
     attention_main_path(kernels[1], train_rec["gates"])
+    from repro_torch.models import MoEShareConfig
+    from repro_torch.train import OptimizerConfig
+    adamw = dict(name="adamw", route="cuda",
+                 source="src/repro_torch/kernels/csrc/adamw.cu",
+                 replaces=None, card=card,
+                 step_ms={run: train_rec["gates"][run]["profile"][
+                     "categories"].get("optimizer", {}).get("ms", 0.0)
+                     for run in ("tensor_cores", "graph")},
+                 step_calls=train_rec["gates"]["tensor_cores"][
+                     "optimizer_calls"])
+    adamw["olmo-1b"] = optimizer_phase(args.seed, get_config(TRAIN_ARCH),
+                                       OptimizerConfig(),
+                                       TRAIN_LOOP["n_micro"])
     moe_rec = moe_main_path(args.seed, root)
     kernels[1]["olmoe_step"] = {c: moe_rec["step"][c] for c in MOE_COUNTERS}
     kernels[0]["olmoe_state"] = moe_rec["state"]
+    conf = json.loads((root / MOE_CONFIG).read_text())
+    adamw["olmoe"] = optimizer_phase(
+        args.seed, MoEShareConfig(**conf["model"]),
+        OptimizerConfig(**conf["optimizer"]), conf["n_micro"])
+    adamw["olmoe_step_calls"] = {c: moe_rec["step"][c]
+                                 for c in OPTIM_COUNTERS}
+    kernels.append(adamw)
     results["train"] = dict(serve=serve_rec, train=train_rec, moe=moe_rec)
     results["train_s"] = time.perf_counter() - t0
     log(f"serving and training: {results['train_s']:.1f} s")

@@ -15,6 +15,14 @@ new values into them and into the moments in place.  Moments are
 (``distributed``) get DTensor moments placed like them; Adafactor's
 factored moments and the step are replicated.
 
+Two routes (the counters ``optim.fused`` and ``optim.plain`` of
+``obs.spans`` count the calls of each): AdamW over CUDA tensors runs on
+the hand-written kernel (``kernels.adamw``: two launches over every
+parameter; DTensors by their local shards, with the norm from DTensor's
+own reduction), everything else, the CPU and Adafactor, on the plain
+version here, which the tests hold to the reference.  Nothing falls back:
+a CUDA tensor the kernel does not take raises.
+
 Adafactor factors the reference's *stacked* leaves.  The reference stacks
 each layer's parameters along a leading axis, so a per-layer 1-D leaf
 (a norm scale, mamba2's ``A_log``, ...) is a 2-D leaf there, factored
@@ -38,8 +46,10 @@ from torch.distributed.tensor import DTensor
 from ..device import DeviceLike, resolve_device
 from ..distributed.hints import replicate_like
 from ..ft.erasure import tree_flatten
+from ..kernels.adamw import FusedAdamW
 from ..models.convert import _STACKED
 from ..models.layers import _DTYPES
+from ..obs import spans
 
 
 @dataclasses.dataclass(frozen=True)
@@ -201,19 +211,90 @@ def apply_updates(cfg: OptimizerConfig, params: Params,
     return params, state
 
 
+class GradSums(dict):
+    """Gradients by parameter name as sums over ``n_micro`` microbatches
+    (the train step's accumulators): the update divides each by
+    ``n_micro`` first, the fused route inside its kernel, whose scratch
+    ``fused`` the step keeps from call to call."""
+
+    def __init__(self, sums: Mapping[str, torch.Tensor], n_micro: int,
+                 fused: "FusedAdamW | None" = None):
+        super().__init__(sums)
+        self.n_micro = n_micro
+        self.fused = fused
+
+
 @torch.no_grad()
 def _apply_updates(cfg: OptimizerConfig, params: Params,
                    grads: Mapping[str, torch.Tensor], state: OptState,
                    lr_scale: "torch.Tensor | float" = 1.0
                    ) -> Tuple[Params, OptState, torch.Tensor]:
     """``apply_updates``, and the gradients' global norm that it clipped
-    by, which the train step reports: one pass over the gradients."""
+    by, which the train step reports.  ``grads`` may be a
+    :class:`GradSums`."""
     named = named_params(params)
+    lr = cfg.lr * lr_scale
+    n_micro, fused = ((grads.n_micro, grads.fused)
+                      if isinstance(grads, GradSums) else (1, None))
+    if fused_route(cfg, named):
+        spans.count("optim.fused")
+        gnorm = _fused_update(cfg, named, grads, state, lr, n_micro,
+                              fused if fused is not None else FusedAdamW())
+    else:
+        spans.count("optim.plain")
+        gnorm = _plain_update(cfg, named, grads, state, lr, n_micro)
+    return params, OptState(step=state.step + 1, m=state.m, v=state.v), gnorm
+
+
+def fused_route(cfg: OptimizerConfig,
+                named: Mapping[str, torch.Tensor]) -> bool:
+    """Whether an update runs on the fused AdamW kernel: AdamW over CUDA
+    tensors (DTensors too).  The CPU, the dry run's meta tensors and
+    Adafactor take the plain version."""
+    return cfg.mode == "adamw" and \
+        next(iter(named.values())).device.type == "cuda"
+
+
+def _plain_update(cfg, named, grads, state, lr, n_micro: int = 1
+                  ) -> torch.Tensor:
+    """The plain version: the gradients divided by ``n_micro`` (in place,
+    in fp32), their global norm, the clip, then AdamW or Adafactor leaf by
+    leaf.  Returns the norm."""
+    if n_micro != 1:
+        grads = {n: grads[n].float().div_(n_micro) for n in named}
     gnorm = global_norm([grads[n] for n in named])
     clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
-    lr = cfg.lr * lr_scale
     if cfg.mode == "adamw":
         _adamw_update(cfg, named, grads, state, lr, clip)
     else:
         _adafactor_update(cfg, named, grads, state, lr, clip)
-    return params, OptState(step=state.step + 1, m=state.m, v=state.v), gnorm
+    return gnorm
+
+
+def _fused_update(cfg, named, grads, state, lr, n_micro: int,
+                  fused: FusedAdamW) -> torch.Tensor:
+    """AdamW on the kernel (``kernels.adamw``).  Plain tensors: the
+    kernel's two launches divide, take the norm and update.  DTensors: the
+    norm from DTensor's own reduction of the divided gradients (squares and
+    sums in fp64, which the kernel's own sum matches to the bit but for
+    ~1e-12 relative), then the kernel's update over the local shards with
+    its first launch skipped.  Returns the norm."""
+    names = list(named)
+    sumsq = None
+    if isinstance(named[names[0]], DTensor):
+        if n_micro != 1:
+            grads = {n: grads[n].float().div_(n_micro) for n in names}
+            n_micro = 1
+        sumsq = sum(torch.sum(grads[n].double() ** 2) for n in names)
+        sumsq = sumsq.full_tensor() if isinstance(sumsq, DTensor) else sumsq
+
+    def local(t):
+        return t.to_local() if isinstance(t, DTensor) else t
+
+    return fused([local(named[n]) for n in names],
+                 [local(grads[n]).contiguous() for n in names],
+                 [local(state.m[n]) for n in names],
+                 [local(state.v[n]) for n in names], state.step, lr,
+                 b1=cfg.b1, b2=cfg.b2, eps=cfg.eps,
+                 weight_decay=cfg.weight_decay, grad_clip=cfg.grad_clip,
+                 n_micro=n_micro, sumsq=sumsq)

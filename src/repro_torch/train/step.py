@@ -18,12 +18,13 @@ import torch
 from torch import nn
 from torch.distributed.tensor import DTensor, Replicate
 
+from ..kernels.adamw import FusedAdamW
 from ..models import decode_step as model_decode
 from ..models import loss_terms as model_loss_terms
 from ..models import prefill as model_prefill
 from ..models.config import ModelConfig
 from ..models.layers import _DTYPES
-from .optimizer import (AdamWConfig, AdamWState, _apply_updates,
+from .optimizer import (AdamWConfig, AdamWState, GradSums, _apply_updates,
                         named_params)
 
 
@@ -84,7 +85,11 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, n_micro: int = 1,
     """``train_step(model, opt_state, batch) -> (model, opt_state,
     metrics)``: the loss of each microbatch, its backward, the gradients
     summed in a ``grad_dtype`` accumulator as ``(a + g.to(gdt)).to(gdt)``,
-    divided by ``n_micro`` in fp32, then ``apply_updates`` (in place).
+    then ``apply_updates`` (in place) of the sums divided by ``n_micro`` in
+    fp32: plain tensors' accumulators go to the optimizer as they are (a
+    ``GradSums`` over ``n_micro``), whose fused route divides inside its
+    kernel (its scratch made at the step's first call on the card and kept
+    by the step); DTensor ones are divided here.
     Metrics: ``loss`` (mean over microbatches), ``grad_norm`` (of the
     averaged gradients) and ``step``, as plain 0-d tensors on the model's
     device; an expert share's loss parts (``models.loss_terms``: ``xent``,
@@ -103,6 +108,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, n_micro: int = 1,
     microbatch, and the sum is redistributed to the 2-D layout once after
     the loop."""
     gdt = _DTYPES[opt_cfg.grad_dtype]
+    fused = FusedAdamW()
 
     def train_step(model, opt_state: AdamWState, batch):
         params = named_params(model)
@@ -154,9 +160,11 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, n_micro: int = 1,
                     v = v.detach()
                     sums[k] = v if k not in sums else sums[k] + v
                 del loss, terms
-        # the update reads gradients in the parameters' layout
-        grads = {n: constrain(a.float().div_(n_micro), n)
-                 for n, a in acc.items()}
+        if grad_shardings is None:      # the optimizer divides
+            grads = GradSums(acc, n_micro, fused)
+        else:   # the update reads gradients in the parameters' layout
+            grads = GradSums({n: constrain(a.float().div_(n_micro), n)
+                              for n, a in acc.items()}, 1, fused)
         del acc, compute
         model, new_opt, gnorm = _apply_updates(opt_cfg, model, grads,
                                                opt_state)
