@@ -39,20 +39,21 @@ nonzero:
    ``src/repro_torch/kernels/csrc/attention.cu``; ``scripts/
    attention_phase.py`` runs it alone): built for olmo-1b's head dim
    (causal; ptxas's registers printed), held to ``chunked_attention`` on
-   the card at olmo-1b's microbatch (2 x 2,048 x 16 heads x 128: output,
-   dQ, dK, dV within 3 bf16 ulps of each one's largest magnitude, and
-   each one's relative RMS error against an fp64 attention at most 1.1
-   times the plain version's), and timed a call forward and backward by
-   CUDA events beside the bound (the causal products' FLOPs at 989e12),
-   ``chunked_attention`` and PyTorch's ``scaled_dot_product_attention``
-   (a yardstick the port never calls).  The same two gates then hold it
-   at OLMoE's microbatch (2 x 4,096 x 16 heads x 128, causal) on q and k
-   that went through QK-norm (a weighted RMSNorm over all heads' features,
-   then RoPE), as ``MoEShareConfig``'s attention feeds it.  Its record
-   joins the ``kernels`` list; phase 7b fills in the main path's part
-   (``attention_main_path``: the launches and calls counted in a profiled
-   eager olmo-1b step, and the kernel's device ms in a profiled replay),
-   and phase 7c the OLMoE step's.
+   the card at olmo-1b's microbatch (2 x 2,048 x 16 heads x 128) by
+   ``repro_torch.kernels.gates.attention_against_plain`` (the gates of its
+   ``chip`` tests: output, dQ, dK, dV within 3 bf16 ulps of each one's
+   largest magnitude, and each one's relative RMS error against an fp64
+   attention at most 1.1 times the plain version's), and timed a call
+   forward and backward by CUDA events beside the bound (the causal
+   products' FLOPs at 989e12), ``chunked_attention`` and PyTorch's
+   ``scaled_dot_product_attention`` (a yardstick the port never calls).
+   The same gates then hold it at OLMoE's microbatch (2 x 4,096 x 16
+   heads x 128, causal) on q and k through QK-norm (a weighted RMSNorm
+   over all heads' features, then RoPE), as ``MoEShareConfig``'s
+   attention feeds it.  Its record joins the ``kernels`` list; phase 7b
+   fills in the main path's part (``attention_main_path``: the launches
+   and calls counted in a profiled eager olmo-1b step, and the kernel's
+   device ms in a profiled replay), and phase 7c the OLMoE step's.
 4. Bulk planning on the card: ``plan_many`` with the planning tier
    (``repro_torch.core.torch_engine``) at the paper's deployments (Fig. 7:
    MSR n=20 k=5 d=10, B=4096; Fig. 8: the interior point halfway from MSR
@@ -231,11 +232,13 @@ nonzero:
       one (``optim.fused``, ``optim.launches``, ``optim.plain``).  Then
       the fused AdamW alone (``optimizer_phase``) at olmo-1b's leaves
       (bf16 parameters, fp32 accumulators and moments, drawn at step 9,
-      n_micro 2): against the plain update run at the kernel's clip, m and
-      v within 2 fp32 ulps and each parameter within 1 ulp of its dtype;
-      the norm within 1e-5 of the plain version's (fp32 sums; the fp64
-      norm recorded); a CUDA graph of the call, replayed, bitwise the
-      eager call; the kernel's events within 1.5x its bytes bound (28 B a
+      n_micro 2), by ``repro_torch.kernels.gates.adamw_against_plain``
+      (the gates of its ``chip`` tests: against the plain update run at
+      the kernel's clip, m and v within 2 fp32 ulps and each parameter
+      within 1 ulp of its dtype; the norm within 1e-5 of the plain
+      version's and 1e-6 of an fp64 norm; two launches; a CUDA graph of
+      the call, replayed, bitwise the eager call); then the kernel's
+      events, a call and a replay, within 1.5x its bytes bound (28 B a
       parameter); the plain version's whole route and
       ``torch.optim.AdamW(fused=True)`` over fp32 copies (a yardstick the
       port never calls) timed beside it.
@@ -392,7 +395,6 @@ PRODUCT_RTOL = 1e-3                       # every loss and grad norm (seen:
 ATTN_SHAPE = dict(B=2, S=2048, H=16, KV=16, D=128)   # olmo-1b's microbatch
 ATTN_SHAPE_OLMOE = dict(B=2, S=4096, H=16, KV=16, D=128)  # OLMoE's, QK-normed
 ATTN_REPS = 20
-ATTN_ULPS, ATTN_RATIO = 3.0, 1.1  # tests/test_torch_attention.py's gates
 ATTN_COUNTERS = ("attn.fused", "attn.chunked", "attn.launches.forward",
                  "attn.launches.backward")
 BF16_FLOPS_PER_S = 989e12         # H100 SXM, dense
@@ -403,16 +405,11 @@ MOE_CONFIG = "perfbench/configs/olmoe-1b-7b-ec8.json"
 MOE_COUNTERS = ATTN_COUNTERS + ("moe.launches", "gf.launches")
 MOE_PAIRS = (1.0, 4.0)            # held pairs a token and layer (about 2)
 # phases 7b and 7c: the fused AdamW (kernels/csrc/adamw.cu) at the train
-# configurations' leaves, against the plain update run at the kernel's
-# clip: m and v within 2 fp32 ulps, each parameter within 1 ulp of its
-# dtype (the same arithmetic; powf may round the bias corrections
-# otherwise), the norm within 1e-5 of the plain version's (fp32 sums); its
-# own events within 1.5x the bytes bound; a profiled eager step one fused
-# call of two launches, no plain one
+# configurations' leaves: the gates of kernels.gates.adamw_against_plain;
+# its own events within 1.5x the bytes bound; a profiled eager step one
+# fused call of two launches, no plain one
 OPTIM_COUNTERS = ("optim.fused", "optim.plain", "optim.launches")
 OPTIM_STEP = {"optim.fused": 1, "optim.plain": 0, "optim.launches": 2}
-OPTIM_ULPS = dict(m=2.0, v=2.0, p=1.0)
-OPTIM_NORM_RTOL = 1e-5
 OPTIM_BOUND_RATIO = 1.5
 OPTIM_REPS = 5
 OPTIM_KERNELS = ("adamw_sumsq", "adamw_update")
@@ -611,22 +608,21 @@ def attention_phase(seed: int) -> dict:
     """The fused attention kernel alone at olmo-1b's microbatch
     (``ATTN_SHAPE``, causal, random bf16 q, k, v and upstream gradient from
     ``seed``): its build and ptxas report; its output and dQ, dK, dV
-    against ``chunked_attention``'s on the card by the card tests' two
-    gates (within ``ATTN_ULPS`` bf16 ulps of each one's largest magnitude,
-    and a relative RMS error against an fp64 attention at most
-    ``ATTN_RATIO`` times the plain version's); then the forward (with the
-    records its backward keeps) and the backward (``torch.autograd.
-    grad``), each timed a call by CUDA events over ``ATTN_REPS`` calls,
+    against ``chunked_attention``'s on the card by its ``chip`` tests'
+    gates (``kernels.gates.attention_against_plain``); then the forward
+    (with the records its backward keeps) and the backward
+    (``torch.autograd.grad``), each timed a call by CUDA events over ``ATTN_REPS`` calls,
     beside the bound (``attention_flops`` at the bf16 peak),
     ``chunked_attention`` (the plain version) and
     ``scaled_dot_product_attention`` (the library's yardstick, which the
     port never calls).  Then the same gates at OLMoE's microbatch
-    (``ATTN_SHAPE_OLMOE``) on QK-normed q and k (``attention_inputs``),
-    under ``olmoe_shape``.  A train step's totals come from the main path
-    (``attention_main_path``, ``moe_main_path``)."""
+    (``ATTN_SHAPE_OLMOE``) on QK-normed q and k, under ``olmoe_shape``.  A
+    train step's totals come from the main path (``attention_main_path``,
+    ``moe_main_path``)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import attention as kattn
+    from repro_torch.kernels import gates
     from repro_torch.models.layers import chunked_attention
     from repro_torch.obs import spans
 
@@ -640,8 +636,11 @@ def attention_phase(seed: int) -> dict:
         if any(w in line for w in ("registers", "spill", "smem")):
             log("  ptxas:", line.strip())
 
-    q, k, v, g, pos = attention_inputs(ATTN_SHAPE, seed)
+    dev = torch.device(DEVICE, torch.cuda.current_device())
+    q, k, v, g, pos = gates.attention_operands(**ATTN_SHAPE, seed=seed,
+                                               device=dev)
     gaps, rms = attention_gates(q, k, v, g, pos, "olmo-1b's microbatch")
+    q, k, v = (t.requires_grad_(True) for t in (q, k, v))
     routes = {
         "kernel": lambda: kattn.fused_attention(q, k, v, pos, causal=True),
         "plain": lambda: chunked_attention(
@@ -699,97 +698,25 @@ def attention_phase(seed: int) -> dict:
         f"library {times['library'][1]:.3f})")
     del q, k, v, g, routes
     torch.cuda.empty_cache()
-    q, k, v, g, pos = attention_inputs(ATTN_SHAPE_OLMOE, seed + 1,
-                                       qk_norm=True)
-    olmoe = attention_gates(q, k, v, g, pos, "OLMoE's QK-normed microbatch")
+    olmoe = attention_gates(*gates.attention_operands(
+        **ATTN_SHAPE_OLMOE, seed=seed + 1, device=dev, qk_norm=True),
+        "OLMoE's QK-normed microbatch")
     rec["olmoe_shape"] = {"shape": dict(ATTN_SHAPE_OLMOE, causal=True,
                                         qk_norm=True),
                           "ulps_from_plain": olmoe[0],
                           "rms_error_kernel_plain": olmoe[1]}
-    del q, k, v, g
     torch.cuda.empty_cache()
     return rec
 
 
-def attention_inputs(shape: dict, seed: int, qk_norm: bool = False):
-    """Causal attention operands of ``shape`` on the card from ``seed``:
-    bf16 q, k, v (B, S, heads, D) needing gradients, the upstream gradient
-    and positions 0..S-1.  With ``qk_norm``, q and k are as OLMoE's
-    attention makes them: normal projections through a weighted RMSNorm
-    over all heads' features (scales 1 + 0.1 N(0, 1), eps 1e-5), then
-    RoPE (theta 10,000)."""
-    from repro_torch.models.layers import apply_norm, rope
-
-    B, S, H, KV, D = (shape[x] for x in ("B", "S", "H", "KV", "D"))
-    dev = torch.device(DEVICE, torch.cuda.current_device())
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
-    pos = torch.arange(S, device=dev, dtype=torch.int32)
-
-    def draw(heads, normed=False):
-        if not normed:
-            x = torch.randn((B, S, heads, D), generator=gen, device=dev,
-                            dtype=torch.bfloat16)
-        else:
-            x = torch.randn((B, S, heads * D), generator=gen, device=dev,
-                            dtype=torch.bfloat16)
-            scale = (1.0 + 0.1 * torch.randn(heads * D, generator=gen,
-                                              device=dev)).bfloat16()
-            x = rope(apply_norm("rmsnorm", x, scale, eps=1e-5)
-                     .reshape(B, S, heads, D), pos, 10000.0)
-        return x.detach().requires_grad_(True)
-
-    q, k, v = draw(H, qk_norm), draw(KV, qk_norm), draw(KV)
-    g = torch.randn((B, S, H, D), generator=gen, device=dev,
-                    dtype=torch.bfloat16)
-    return q, k, v, g, pos
-
-
 def attention_gates(q, k, v, g, pos, label: str):
-    """The fused kernel's output and dQ, dK, dV against
-    ``chunked_attention``'s on the same causal operands, by the card
-    tests' two gates: within ``ATTN_ULPS`` bf16 ulps of each one's largest
-    magnitude, and a relative RMS error against an fp64 attention at most
-    ``ATTN_RATIO`` times the plain version's.  Returns (ulps, [kernel's,
-    plain's RMS error]) by name; raises if a gate fails."""
-    from repro_torch.kernels import attention as kattn
-    from repro_torch.models.layers import chunked_attention
+    """``kernels.gates.attention_against_plain`` on causal operands, its
+    readings logged: (ulps, [kernel's, plain's RMS error]) by name; raises
+    if a gate fails."""
+    from repro_torch.kernels import gates
 
-    D = q.shape[-1]
-
-    def grads(fn, operands=(q, k, v), grad=g):
-        out = fn(*operands)
-        return [out.detach()] + list(torch.autograd.grad(out, operands, grad))
-
-    def dense64(a, b, c):
-        s = torch.einsum("bqhd,bkhd->bhqk", a, b) / math.sqrt(D)
-        s = s.masked_fill(~(pos[:, None] >= pos[None, :]), -math.inf)
-        return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), c)
-
-    names = ("out", "dq", "dk", "dv")
-    fused = grads(lambda *x: kattn.fused_attention(q, k, v, pos,
-                                                   causal=True))
-    plain = grads(lambda *x: chunked_attention(
-        q, k, v, causal=True, q_positions=pos, kv_positions=pos,
-        q_chunk=1024, kv_chunk=2048))
-    ops64 = [t.detach().double().requires_grad_(True) for t in (q, k, v)]
-    exact = grads(dense64, ops64, g.double())
-    del ops64
-    gaps, rms = {}, {}
-    for name, a, b, x in zip(names, fused, plain, exact):
-        ulp = bf16_ulp(float(b.float().abs().max()))
-        gaps[name] = float((a.float() - b.float()).abs().max()) / ulp
-        rms[name] = [float((y.double() - x).norm() / x.norm())
-                     for y in (a, b)]
-    del fused, plain, exact
-    torch.cuda.empty_cache()
-    if not all(map(math.isfinite, gaps.values())) or \
-            max(gaps.values()) > ATTN_ULPS or \
-            any(not ka <= ATTN_RATIO * pa for ka, pa in rms.values()):
-        raise AssertionError(
-            f"kernel against chunked_attention at {label}: {gaps} bf16 ulps "
-            f"(gate {ATTN_ULPS}); relative RMS errors against fp64, kernel "
-            f"and plain: {rms} (gate {ATTN_RATIO}x the plain version's)")
+    gaps, rms = gates.attention_against_plain(q, k, v, g, pos, True,
+                                              f"at {label}")
     log(f"  kernel against chunked_attention at {label} "
         f"{tuple(q.shape)}: " + ", ".join(f"{n} {x:.2f}"
                                          for n, x in gaps.items())
@@ -958,17 +885,18 @@ def moe_main_path(seed: int, root: pathlib.Path) -> dict:
 def optimizer_phase(seed: int, cfg, opt_cfg, n_micro: int) -> dict:
     """Phases 7b and 7c's fused AdamW (see the module docstring) at the
     leaves of ``cfg`` (its parameters' shapes and dtypes, ``opt_cfg``'s
-    moments and accumulators), drawn on the card from ``seed`` at step 9:
-    the kernel's call against the plain update at the kernel's clip and
-    against the plain version's norm and an fp64 norm; a captured replay
-    bitwise the eager call; the kernel's events beside its bytes bound,
-    the plain version (its whole route: division, norm, update) and
+    moments and accumulators), drawn on the card from ``seed`` at step 9
+    (``kernels.gates.adamw_operands``): the kernel against the plain update
+    by its ``chip`` tests' gates (``kernels.gates.adamw_against_plain``);
+    the kernel's events, a call and a captured replay, beside its bytes
+    bound (they must stay within ``OPTIM_BOUND_RATIO`` of it), the plain
+    version (its whole route: division, norm, update) and
     ``torch.optim.AdamW(fused=True)`` over fp32 copies of the leaves (a
     yardstick the port never calls: no clip, no norm, the same 28 B a
     parameter).  Returns the record."""
     from repro_torch.kernels import adamw as kadamw
+    from repro_torch.kernels import gates
     from repro_torch.models import Transformer
-    from repro_torch.obs import spans
     from repro_torch.train import optimizer as optmod
 
     dev = torch.device(DEVICE, torch.cuda.current_device())
@@ -982,35 +910,9 @@ def optimizer_phase(seed: int, cfg, opt_cfg, n_micro: int) -> dict:
                  for _, shape, d in leaves)
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     base = fresh_peak()
-
-    def draw():
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(seed)
-
-        def normal(shape, dtype, scale, square=False):
-            x = torch.randn(shape, generator=gen, device=dev) * scale
-            return (x * x if square else x).to(dtype)
-
-        params = {n: normal(s, d, 0.02) for n, s, d in leaves}
-        acc = {n: normal(s, gdt, 0.02) for n, s, _ in leaves}
-        state = optmod.OptState(
-            step=torch.full((), 9, dtype=torch.int32, device=dev),
-            m={n: normal(s, sdt, 1e-3) for n, s, _ in leaves},
-            v={n: normal(s, sdt, 1e-3, square=True) for n, s, _ in leaves})
-        return params, acc, state
-
-    def worst_ulps(got, want):
-        exp = torch.frexp(want.float().abs())[1]
-        bits = 8 if want.dtype == torch.bfloat16 else 24
-        ulp = torch.ldexp(torch.ones_like(exp, dtype=torch.float32),
-                          exp - bits)
-        return float(((got.float() - want.float()).abs() / ulp).max())
-
-    def ulps(a, b):
-        return {key: max(worst_ulps(x, y) for x, y in pairs) for key, pairs in
-                (("m", [(a[2].m[n], b[2].m[n]) for n in a[0]]),
-                 ("v", [(a[2].v[n], b[2].v[n]) for n in a[0]]),
-                 ("p", [(a[0][n], b[0][n]) for n in a[0]]))}
+    operands = dict(shapes=[s for _, s, _ in leaves],
+                    dtypes=[d for _, _, d in leaves], mdt=sdt, gdt=gdt,
+                    seed=seed, device=dev, on=dev)
 
     def fused_call(run, fused):
         return optmod._fused_update(opt_cfg, run[0], run[1], run[2],
@@ -1022,46 +924,23 @@ def optimizer_phase(seed: int, cfg, opt_cfg, n_micro: int) -> dict:
     build_s = time.perf_counter() - t0
     ptxas = [line.strip() for line in build_out.splitlines()
              if any(w in line for w in ("registers", "spill"))]
+    held = gates.adamw_against_plain(operands, opt_cfg, n_micro,
+                                     f"at {cfg.name}'s leaves")
     fused = kadamw.FusedAdamW()
-    eager = draw()
-    launch0 = spans.total("optim.launches")
-    norm = fused_call(eager, fused)
-    launches = spans.total("optim.launches") - launch0
-    # the plain update at the kernel's clip: the same arithmetic
-    plain = draw()
-    grads = {n: a.float().div_(n_micro) for n, a in plain[1].items()}
-    clip = torch.clamp(opt_cfg.grad_clip / (norm + 1e-9), max=1.0)
-    optmod._adamw_update(opt_cfg, plain[0], grads, plain[2], opt_cfg.lr,
-                         clip)
-    plain_norm = float(optmod.global_norm(list(grads.values())))
-    exact_norm = float(torch.sqrt(sum(torch.sum(g.double() ** 2)
-                                      for g in grads.values())))
-    gaps = ulps(eager, plain)
-    del plain, grads
-    # the plain version's whole route, its own norm: recorded
-    plain = draw()
-    own_norm = float(optmod._plain_update(opt_cfg, plain[0], plain[1],
-                                          plain[2], opt_cfg.lr, n_micro))
-    own_gaps = ulps(eager, plain)
-    plain_ms = cuda_ms(lambda: optmod._plain_update(
-        opt_cfg, plain[0], plain[1], plain[2], opt_cfg.lr, n_micro), 2)
-    del plain
-    # a captured replay against the eager call
-    replayed = draw()
+    run = gates.adamw_operands(**operands)
+    fused_call(run, fused)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        replay_norm = fused_call(replayed, fused)
-    graph.replay()
-    torch.cuda.synchronize()
-    bitwise = bool(torch.equal(replay_norm, norm)) and all(
-        torch.equal(replayed[0][n], eager[0][n])
-        and torch.equal(replayed[2].m[n], eager[2].m[n])
-        and torch.equal(replayed[2].v[n], eager[2].v[n]) for n in eager[0])
-    ms = cuda_ms(lambda: fused_call(replayed, fused), OPTIM_REPS)
+        fused_call(run, fused)
+    ms = cuda_ms(lambda: fused_call(run, fused), OPTIM_REPS)
     replay_ms = cuda_ms(graph.replay, OPTIM_REPS)
+    del graph, run
+    run = gates.adamw_operands(**operands)
+    plain_ms = cuda_ms(lambda: optmod._plain_update(
+        opt_cfg, run[0], run[1], run[2], opt_cfg.lr, n_micro), 2)
     peak = (torch.cuda.max_memory_allocated() - base) / 2**30
-    del graph, replayed, eager
+    del run
     fresh_peak()
     # the library's yardstick over fp32 copies of the leaves
     gen = torch.Generator(device=dev)
@@ -1080,40 +959,30 @@ def optimizer_phase(seed: int, cfg, opt_cfg, n_micro: int) -> dict:
     del lib_opt, weights
     fresh_peak()
 
-    norm_gap = abs(float(norm) - plain_norm) / plain_norm
     rec = dict(arch=cfg.name, params=count, tensors=len(leaves),
                n_micro=n_micro, dtypes=dict(
                    params=sorted({str(d) for _, _, d in leaves}),
                    moments=str(sdt), grads=str(gdt)),
-               build_s=build_s, ptxas=ptxas, launches=launches,
-               norm=float(norm), plain_norm=plain_norm, exact_norm=exact_norm,
-               norm_rel_gap=norm_gap,
-               exact_rel_gap=abs(float(norm) - exact_norm) / exact_norm,
-               clip=float(clip), ulps=gaps, plain_route_norm=own_norm,
-               plain_route_ulps=own_gaps, graph_bitwise=bitwise, ms=ms,
+               build_s=build_s, ptxas=ptxas, **held, ms=ms,
                replay_ms=replay_ms, bytes=nbytes, bound_ms=bound_ms,
                plain_ms=plain_ms, library_ms=library_ms, peak_gib=peak)
     log(f"  fused AdamW at {cfg.name}'s {len(leaves)} leaves ({count} "
         f"parameters, n_micro {n_micro}): build {build_s:.2f} s; "
-        f"{launches} launches; norm {float(norm):.9g} (plain "
-        f"{plain_norm:.9g}, fp64 {exact_norm:.9g}), clip {float(clip):.6g};"
-        f" against the plain update at its clip, ulps m {gaps['m']:.2f} v "
-        f"{gaps['v']:.2f} p {gaps['p']:.2f} (the plain route at its own "
-        f"norm: m {own_gaps['m']:.2f} v {own_gaps['v']:.2f} p "
-        f"{own_gaps['p']:.2f}); replay "
-        f"{'bitwise equal to' if bitwise else 'NOT equal to'} the eager "
-        f"call; {ms:.3f} ms a call by its events ({replay_ms:.3f} replayed)"
-        f", bound {bound_ms:.3f} ms ({nbytes} B), plain {plain_ms:.3f} ms, "
-        f"torch.optim.AdamW(fused=True) {library_ms:.3f} ms; peak "
-        f"{peak:.2f} GiB")
+        f"{held['launches']} launches; norm {held['norm']:.9g} (plain "
+        f"{held['plain_norm']:.9g}, fp64 {held['exact_norm']:.9g}), clip "
+        f"{held['clip']:.6g}; against the plain update at its clip, ulps "
+        + ", ".join(f"{x} {u:.2f}" for x, u in held["ulps"].items())
+        + "; replay bitwise equal to the eager call; "
+        f"{ms:.3f} ms a call by its events "
+        f"({replay_ms:.3f} replayed), bound {bound_ms:.3f} ms ({nbytes} B), "
+        f"plain {plain_ms:.3f} ms, torch.optim.AdamW(fused=True) "
+        f"{library_ms:.3f} ms; peak {peak:.2f} GiB")
     for line in ptxas:
         log("    ptxas:", line)
-    bad = [key for key, lim in OPTIM_ULPS.items() if gaps[key] > lim]
-    if bad or norm_gap > OPTIM_NORM_RTOL or not bitwise or \
-            launches != 2 * len(kadamw.chunk_map([math.prod(s) for _, s, _
-                                                 in leaves])) or \
-            ms > OPTIM_BOUND_RATIO * bound_ms:
-        raise AssertionError(f"the fused AdamW at {cfg.name}: {rec}")
+    if ms > OPTIM_BOUND_RATIO * bound_ms:
+        raise AssertionError(f"the fused AdamW at {cfg.name}: {ms:.3f} ms a "
+                             f"call, over {OPTIM_BOUND_RATIO}x its bound "
+                             f"{bound_ms:.3f} ms")
     return rec
 
 

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """The fused attention kernel alone on one NVIDIA card
 (``chip_smoke.attention_phase``): its build and ptxas report, its output
-and gradients against ``chunked_attention`` at olmo-1b's microbatch, and
-its forward and backward times beside the bound, the plain version and
-``scaled_dot_product_attention``.
+and gradients against ``chunked_attention`` at olmo-1b's microbatch and
+OLMoE's QK-normed one (``repro_torch.kernels.gates``, the gates of its
+``chip`` tests), and its forward and backward times beside the bound, the
+plain version and ``scaled_dot_product_attention``.
 
     python3 scripts/attention_phase.py [--seed N] [--out results.json]
 

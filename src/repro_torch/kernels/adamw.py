@@ -33,7 +33,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 import torch
 
 from ..obs import spans
-from .nvcc import BUILD_DIR, NVCC_FLAGS, build_library
+from .nvcc import BUILD_DIR, NVCC_FLAGS, build_library, load
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "adamw.cu"
 THREADS = 256
@@ -44,6 +44,8 @@ BLOCKS_PER_SM = 4
 # the source's ``Tensors``: four pointers, a size, a first chunk and a
 # dtype byte a tensor, the chunks in all, the count
 TENSORS_BYTES = MAX_TENSORS * (4 * 8 + 8 + 4 + 1) + 4 + 4
+# what the source's ``adamw_geometry`` must report
+GEOMETRY = (THREADS, VEC, CHUNK, MAX_TENSORS, TENSORS_BYTES)
 PARAM_LIMIT = 32764             # bytes of kernel parameters on Hopper
 # the update's other parameters: eight floats, four pointers and an int
 # (padded to 8 bytes)
@@ -93,11 +95,7 @@ def library() -> ctypes.CDLL:
     """The loaded library (built on first call), with
     ``adamw_sumsq_launch`` and ``adamw_update_launch``."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib = ctypes.CDLL(str(build()[0]))
-    lib.adamw_geometry.argtypes = [ctypes.POINTER(ctypes.c_int)]
-    lib.adamw_geometry.restype = None
-    lib.adamw_error_string.argtypes = [i]
-    lib.adamw_error_string.restype = ctypes.c_char_p
+    lib = load(build()[0], SOURCE, "adamw", GEOMETRY)
     # p, g, m, v, numel, first_chunk, kind, count
     tensors = [p] * 7 + [i]
     lib.adamw_sumsq_launch.argtypes = tensors + [f, p, i, p]
@@ -105,24 +103,7 @@ def library() -> ctypes.CDLL:
     lib.adamw_update_launch.argtypes = tensors + [f] * 8 + [p, i, p, p, p,
                                                             i, p]
     lib.adamw_update_launch.restype = i
-    geometry = (ctypes.c_int * 5)()
-    lib.adamw_geometry(geometry)
-    want = (THREADS, VEC, CHUNK, MAX_TENSORS, TENSORS_BYTES)
-    if tuple(geometry) != want:
-        raise RuntimeError(f"{SOURCE.name} has geometry {tuple(geometry)}, "
-                           f"the wrapper {want}")
     return lib
-
-
-@functools.lru_cache(maxsize=None)
-def device_sms(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
-def _check(lib: ctypes.CDLL, err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} failed: "
-                           f"{lib.adamw_error_string(err).decode()} ({err})")
 
 
 def kind(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor) -> int:
@@ -214,7 +195,8 @@ class FusedAdamW:
         Returns the norm, an fp32 0-d tensor."""
         dev = check_operands(params, grads, m, v, step, sumsq)
         groups = chunk_map([p.numel() for p in params])
-        grid = device_sms(dev) * BLOCKS_PER_SM
+        grid = (torch.cuda.get_device_properties(dev).multi_processor_count
+                * BLOCKS_PER_SM)
         lib = library()
         self._scratch(dev, grid * len(groups))
         norm = torch.empty((), dtype=torch.float32, device=dev)
@@ -242,7 +224,7 @@ class FusedAdamW:
             if sumsq is None:
                 base = self._partials.data_ptr()
                 for k, a in enumerate(args):
-                    _check(lib, lib.adamw_sumsq_launch(
+                    lib.check(lib.adamw_sumsq_launch(
                         *a, f_(float(n_micro)), p_(base + 8 * k * grid),
                         c_(grid), p_(stream)), "fused AdamW's sum of squares")
                     spans.count("optim.launches")
@@ -250,7 +232,7 @@ class FusedAdamW:
             else:
                 partials, n_partials = sumsq.data_ptr(), 1
             for k, a in enumerate(args):
-                _check(lib, lib.adamw_update_launch(
+                lib.check(lib.adamw_update_launch(
                     *a, *hyper, p_(partials), c_(n_partials),
                     p_(norm.data_ptr() if k == 0 else None),
                     p_(step.data_ptr()), p_(self._lr.data_ptr()), c_(grid),

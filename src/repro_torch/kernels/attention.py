@@ -29,7 +29,7 @@ from typing import Sequence, Tuple
 import torch
 
 from ..obs import spans
-from .nvcc import BUILD_DIR, NVCC_FLAGS, build_library
+from .nvcc import BUILD_DIR, NVCC_FLAGS, build_library, load
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "attention.cu"
 TILE = 64                       # rows of a query or key tile
@@ -69,27 +69,13 @@ def library(head_dim: int, causal: bool) -> ctypes.CDLL:
     """The loaded library of one variant (built on first call), with
     ``attn_forward`` and ``attn_backward``."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib = ctypes.CDLL(str(build(head_dim, causal)[0]))
-    lib.attn_geometry.argtypes = [ctypes.POINTER(ctypes.c_int)]
-    lib.attn_geometry.restype = None
-    lib.attn_error_string.argtypes = [i]
-    lib.attn_error_string.restype = ctypes.c_char_p
+    lib = load(build(head_dim, causal)[0], SOURCE, "attn",
+               (TILE, head_dim, int(causal), THREADS))
     lib.attn_forward.argtypes = [p] * 8 + [i] * 4 + [p]
     lib.attn_forward.restype = i
     lib.attn_backward.argtypes = [p] * 13 + [i] * 4 + [p]
     lib.attn_backward.restype = i
-    geometry = (ctypes.c_int * 4)()
-    lib.attn_geometry(geometry)
-    if tuple(geometry) != (TILE, head_dim, int(causal), THREADS):
-        raise RuntimeError(f"{SOURCE.name} has geometry {tuple(geometry)}, "
-                           f"the wrapper {(TILE, head_dim, int(causal), THREADS)}")
     return lib
-
-
-def _check(lib: ctypes.CDLL, err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} failed: "
-                           f"{lib.attn_error_string(err).decode()} ({err})")
 
 
 def _operand(t: torch.Tensor) -> torch.Tensor:
@@ -121,7 +107,7 @@ class _FusedAttention(torch.autograd.Function):
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), positions.data_ptr(),
                 bounds.data_ptr(), out.data_ptr(), _ptr(o32), stats.data_ptr(),
                 B, S, H, KV, torch.cuda.current_stream().cuda_stream)
-        _check(lib, err, f"attention forward at {tuple(q.shape)}")
+        lib.check(err, f"attention forward at {tuple(q.shape)}")
         spans.count("attn.launches.forward")
         if grad:
             ctx.save_for_backward(q, k, v, positions, bounds, o32, stats)
@@ -144,7 +130,7 @@ class _FusedAttention(torch.autograd.Function):
             err = lib.attn_backward(
                 *(t.data_ptr() for t in args), B, S, H, KV,
                 torch.cuda.current_stream().cuda_stream)
-        _check(lib, err, f"attention backward at {tuple(q.shape)}")
+        lib.check(err, f"attention backward at {tuple(q.shape)}")
         spans.count("attn.launches.backward")
         return dq, dk, dv, None, None
 

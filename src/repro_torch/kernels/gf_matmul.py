@@ -27,7 +27,7 @@ from typing import Tuple
 import torch
 
 from ..obs import spans
-from .nvcc import BUILD_DIR, NVCC_FLAGS, build_library
+from .nvcc import BUILD_DIR, NVCC_FLAGS, build_library, load
 from .ref import check_operands
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "gf_matmul.cu"
@@ -41,12 +41,6 @@ def build() -> Tuple[pathlib.Path, str]:
     register and shared-memory report, and is empty when nothing was built.
     """
     return build_library(SOURCE, "libgf_matmul", NVCC_FLAGS, BUILD_DIR)
-
-
-def _check(lib: ctypes.CDLL, err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} failed: "
-                           f"{lib.gf256_error_string(err).decode()} ({err})")
 
 
 # The kernel's tile constants (csrc/gf_matmul.cu); ``library()`` checks
@@ -85,6 +79,10 @@ VARIANTS = (Variant("aligned", ahead=16, slot_bytes=8, chunk_rows=384,
                     stage_bytes=0),
             Variant("shifted", ahead=16, slot_bytes=16, chunk_rows=304,
                     stage_bytes=BAND_ROWS * TILE_COLS))
+# what the source's ``gf256_geometry`` must report
+GEOMETRY = (BAND_ROWS, TILE_COLS, PAD_ROWS, SMEM_PER_ROW) + tuple(
+    x for v in VARIANTS
+    for x in (v.ahead, v.slot_bytes, v.chunk_rows, v.stage_bytes))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,28 +156,15 @@ def operands_aligned(b: torch.Tensor, c: torch.Tensor) -> bool:
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The built and loaded kernel library (built on first call)."""
-    path, _ = build()
-    lib = ctypes.CDLL(str(path))
+    lib = load(build()[0], SOURCE, "gf256", GEOMETRY)
     lib.gf256_init.argtypes = []
     lib.gf256_init.restype = ctypes.c_int
-    lib.gf256_geometry.argtypes = [ctypes.POINTER(ctypes.c_int)]
-    lib.gf256_geometry.restype = None
     lib.gf256_matmul_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
         ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
         ctypes.c_int, ctypes.c_void_p]
     lib.gf256_matmul_launch.restype = ctypes.c_int
-    lib.gf256_error_string.argtypes = [ctypes.c_int]
-    lib.gf256_error_string.restype = ctypes.c_char_p
-    geometry = (ctypes.c_int * 12)()
-    lib.gf256_geometry(geometry)
-    want = (BAND_ROWS, TILE_COLS, PAD_ROWS, SMEM_PER_ROW) + tuple(
-        x for v in VARIANTS
-        for x in (v.ahead, v.slot_bytes, v.chunk_rows, v.stage_bytes))
-    if tuple(geometry) != want:
-        raise RuntimeError(f"{SOURCE.name} has geometry {tuple(geometry)}, "
-                           f"the wrapper {want}")
     return lib
 
 
@@ -189,7 +174,7 @@ def device_sms(device: torch.device) -> int:
     use its shared memory there (``gf256_init``)."""
     lib = library()
     with torch.cuda.device(device):
-        _check(lib, lib.gf256_init(), f"gf256_init on {device}")
+        lib.check(lib.gf256_init(), f"gf256_init on {device}")
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
@@ -231,7 +216,7 @@ def gf_matmul_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                                       plan.variant, stream)
         if events is not None:
             events[1].record()
-    _check(lib, err, f"gf256_matmul launch at (M, K, N) = {(M, K, N)}")
+    lib.check(err, f"gf256_matmul launch at (M, K, N) = {(M, K, N)}")
     spans.count("gf.launches")
     if events is not None:
         spans.product((M, K, N), variant, *events)

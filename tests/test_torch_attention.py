@@ -9,36 +9,23 @@ the counter ``attn.fused`` left at 0.
 On the card (marked ``chip``, skipped without one; this file imports JAX
 only inside the CPU tests that run the reference): the kernel's output
 and its dQ, dK and dV against ``chunked_attention``'s on the card, at
-olmo-1b's training shape (2 x 2,048 x 16 heads x 128, causal), yi-6b's
-GQA (32 query heads over 4 KV heads, 128), one non-causal shape, and a
-ragged head-dim-64 sequence at shuffled positions; and against the
+olmo-1b's training shape (2 x 2,048 x 16 heads x 128, causal), OLMoE's
+(2 x 4,096 x 16 x 128, causal) on q and k through its QK-norm (a weighted
+RMSNorm over all heads' features, eps 1e-5, scales 1 + 0.1 N(0, 1)) and
+RoPE (theta 10,000), yi-6b's GQA (32 query heads over 4 KV heads, 128),
+one non-causal shape, and a ragged head-dim-64 sequence at shuffled
+positions; and against the
 reference package's ``chunked_attention`` (JAX) at three small shapes,
 through its readings recorded in ``tests/data/attention_reference.npz``
 (which the CPU tests hold to the reference, bitwise, and the port's plain
 version to, by the same gates).  Each side and an fp64 dense attention
-see the same bf16 q, k, v and upstream gradient.  Tolerances:
-
-* each output within ``ULPS`` = 3 bf16 ulps (of its largest magnitude)
-  of the compared version's (the port's plain version on the card, or
-  the reference's recording), element by element: each side's worst
-  element lies up to about 1.3 ulp from the fp64 value (1.32 the
-  kernel's dQ, 1.09 the plain version's dK at olmo-1b's shape, NVIDIA
-  H100), so two sound results differ by up to their sum (2.0 seen).  The
-  kernel's dQ has its worst element in the first rows of a causal
-  sequence: the plain version's graph also sends the row's sum of dS
-  through its max to the argmax score, a term that is zero but for
-  rounding and cancels dP's rounding to bf16 in a row of few keys; the
-  kernel leaves it out, as FlashAttention does;
-* the kernel's relative RMS error against the fp64 attention at most
-  ``RATIO`` = 1.1 times the compared version's: the same precision (0.74
-  to 1.00 times the plain version's seen; the kernel rounds dQ, dK and
-  dV once, where the plain version also rounds each query chunk's dK and
-  dV to bf16 and sums them in bf16).  The sound errors are about 2e-3,
-  bf16's rounding of the outputs; one wrong row of 2,048 alone reads
-  about 2e-2, ten times that.
+see the same bf16 q, k, v and upstream gradient.  The gates and their
+tolerances (3 bf16 ulps of each output's largest magnitude; a relative
+RMS error against the fp64 attention at most 1.1 times the compared
+version's) live in ``repro_torch.kernels.gates``, which ``chip_smoke.py``
+calls too.
 """
 import dataclasses
-import math
 import pathlib
 import sys
 
@@ -49,6 +36,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.kernels import attention as kattn
+from repro_torch.kernels import gates
 from repro_torch.kernels.attention import HEAD_DIMS, fused_attention_engages
 from repro_torch.models import init_params, layers
 from repro_torch.models.transformer import loss_fn
@@ -56,14 +44,14 @@ from repro_torch.obs import spans
 
 CPU, CUDA = torch.device("cpu"), torch.device("cuda", 0)
 BF, F32 = torch.bfloat16, torch.float32
-ULPS, RATIO = 3.0, 1.1
-NAMES = ("out", "dq", "dk", "dv")
+NAMES = gates.ATTN_NAMES
 
-# (label, B, S, H, KV, D, causal, shuffled positions)
-CARD_CASES = [("olmo-1b", 2, 2048, 16, 16, 128, True, False),
-              ("yi-6b-gqa", 1, 2048, 32, 4, 128, True, False),
-              ("full", 2, 512, 8, 8, 128, False, False),
-              ("ragged-d64", 1, 1000, 16, 16, 64, True, True)]
+# (label, B, S, H, KV, D, causal, shuffled positions, QK-norm)
+CARD_CASES = [("olmo-1b", 2, 2048, 16, 16, 128, True, False, False),
+              ("yi-6b-gqa", 1, 2048, 32, 4, 128, True, False, False),
+              ("full", 2, 512, 8, 8, 128, False, False, False),
+              ("ragged-d64", 1, 1000, 16, 16, 64, True, True, False),
+              ("olmoe-qk-norm", 2, 4096, 16, 16, 128, True, False, True)]
 
 
 @pytest.fixture(autouse=True)
@@ -196,73 +184,16 @@ def test_build_parts(monkeypatch, head_dim, causal):
             f"-DATTN_CAUSAL={int(causal)}"} <= set(flags)
 
 
-def test_fused_attention_refuses_cpu():
-    gen = torch.Generator().manual_seed(3)
-    q, k, v = _qkv(gen, 1, 64, 2, 2, 64, BF)
-    with pytest.raises(ValueError, match="CUDA"):
-        kattn.fused_attention(q, k, v, torch.arange(64), causal=True)
-
-
 # -- the kernel against the plain version, on the card ------------------------
-
-def _dense64(q, k, v, pos, causal):
-    """fp64 attention of fp64 operands (GQA by repeating KV heads)."""
-    G = q.shape[2] // k.shape[2]
-    kd = k.repeat_interleave(G, dim=2)
-    vd = v.repeat_interleave(G, dim=2)
-    s = torch.einsum("bqhd,bkhd->bhqk", q, kd) / math.sqrt(q.shape[-1])
-    if causal:
-        s = s.masked_fill(~(pos[:, None] >= pos[None, :]), -math.inf)
-    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), vd)
-
-
-def _hold(got, want, exact):
-    """Each of ``got``'s out, dQ, dK, dV (bf16) within ``ULPS`` bf16 ulps of
-    the largest magnitude of ``want``'s, element by element, and its
-    relative RMS error against ``exact``'s (fp64) at most ``RATIO`` times
-    ``want``'s."""
-    for name, a, b, x in zip(NAMES, got, want, exact):
-        a, b, x = (t.to(x.device) for t in (a, b, x))
-        assert a.dtype == BF and a.shape == b.shape
-        assert torch.isfinite(a).all(), name
-        top = float(b.float().abs().max())
-        ulp = 2.0 ** (math.floor(math.log2(top)) - 7)
-        gap = float((a.float() - b.float()).abs().max())
-        assert gap <= ULPS * ulp, (name, gap / ulp)
-        rms_a = float((a.double() - x).norm() / x.norm())
-        rms_b = float((b.double() - x).norm() / x.norm())
-        assert rms_a <= RATIO * rms_b, (name, rms_a, rms_b)
-
-
-def _run(fn, q, k, v, g):
-    qs, ks, vs = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
-    out = fn(qs, ks, vs)
-    out.backward(g)
-    return [out.detach(), qs.grad, ks.grad, vs.grad]
-
 
 @pytest.mark.chip
 @pytest.mark.parametrize("case", CARD_CASES, ids=[c[0] for c in CARD_CASES])
 def test_kernel_matches_chunked(card, case):
-    _, B, S, H, KV, D, causal, shuffled = case
-    gen = torch.Generator().manual_seed(sum(case[1:6]))
-    q, k, v = (t.to(CUDA) for t in _qkv(gen, B, S, H, KV, D, BF))
-    g = torch.randn((B, S, H, D), generator=gen).to(CUDA, BF)
-    pos = (torch.randperm(S, generator=gen) if shuffled
-           else torch.arange(S)).to(CUDA, torch.int32)
-    chunk = dict(causal=causal, q_positions=pos, kv_positions=pos,
-                 q_chunk=1024, kv_chunk=2048)
-    fused = _run(lambda a, b, c: kattn.fused_attention(a, b, c, pos,
-                                                       causal=causal),
-                 q, k, v, g)
-    plain = _run(lambda a, b, c: layers.chunked_attention(a, b, c, **chunk),
-                 q, k, v, g)
-    exact = _run(lambda a, b, c: _dense64(a, b, c, pos.long(), causal),
-                 q.double(), k.double(), v.double(), g.double())
-    torch.cuda.synchronize()
-    assert spans.total("attn.launches.forward") == 1
-    assert spans.total("attn.launches.backward") == 1
-    _hold(fused, plain, exact)
+    label, B, S, H, KV, D, causal, shuffled, qk_norm = case
+    q, k, v, g, pos = gates.attention_operands(
+        B, S, H, KV, D, seed=sum(case[1:6]), device=CUDA, shuffled=shuffled,
+        qk_norm=qk_norm)    # QK-norm as an expert share's attention feeds it
+    gates.attention_against_plain(q, k, v, g, pos, causal, label)
 
 
 # -- the kernel against the reference package, through a recorded reading ----
@@ -272,7 +203,7 @@ def test_kernel_matches_chunked(card, case):
 # small shapes are recorded in ``REFERENCE`` from inputs that numpy's PCG64
 # draws the same on any host.  On the CPU, the recording is held to the
 # reference run again and the port's plain version to the recording; on the
-# card, the kernel to the recording by ``_hold``'s two gates.
+# card, the kernel to the recording by ``gates.hold_attention``'s two gates.
 
 # (label, B, S, H, KV, D, causal, shuffled positions)
 REF_CASES = [("causal-d128", 1, 256, 2, 2, 128, True, False),
@@ -340,12 +271,27 @@ def test_cpu_chunked_matches_recorded_reference(case):
     the reference's recording, by the card cases' gates."""
     q, k, v, g, pos = _ref_inputs(case)
     causal = case[6]
-    plain = _run(lambda a, b, c: layers.chunked_attention(
+    plain = gates.attention_grads(lambda a, b, c: layers.chunked_attention(
         a, b, c, causal=causal, q_positions=pos, kv_positions=pos,
         q_chunk=1024, kv_chunk=2048), q, k, v, g)
-    exact = _run(lambda a, b, c: _dense64(a, b, c, pos.long(), causal),
-                 q.double(), k.double(), v.double(), g.double())
-    _hold(plain, _recorded(case), exact)
+    gates.hold_attention(plain, _recorded(case),
+                         gates.exact_attention(q, k, v, g, pos, causal))
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_gates_refuse_one_wrong_head(name):
+    """The gates the kernel is held to catch one head of one output gone
+    wrong: the plain version on the CPU with one head's values of ``name``
+    scaled by 1.1, against the reference's recording."""
+    case = REF_CASES[0]
+    q, k, v, g, pos = _ref_inputs(case)
+    plain = gates.attention_grads(lambda a, b, c: layers.chunked_attention(
+        a, b, c, causal=case[6], q_positions=pos, kv_positions=pos,
+        q_chunk=1024, kv_chunk=2048), q, k, v, g)
+    plain[NAMES.index(name)][:, :, 1] *= 1.1
+    with pytest.raises(AssertionError, match=rf"\['{name}'\] fail"):
+        gates.hold_attention(plain, _recorded(case), gates.exact_attention(
+            q, k, v, g, pos, case[6]))
 
 
 @pytest.mark.chip
@@ -353,12 +299,11 @@ def test_cpu_chunked_matches_recorded_reference(case):
 def test_kernel_matches_recorded_reference(card, case):
     q, k, v, g, pos = (t.to(CUDA) for t in _ref_inputs(case))
     causal = case[6]
-    fused = _run(lambda a, b, c: kattn.fused_attention(a, b, c, pos,
-                                                       causal=causal),
-                 q, k, v, g)
-    exact = _run(lambda a, b, c: _dense64(a, b, c, pos.long(), causal),
-                 q.double(), k.double(), v.double(), g.double())
-    _hold(fused, _recorded(case), exact)
+    fused = gates.attention_grads(
+        lambda a, b, c: kattn.fused_attention(a, b, c, pos, causal=causal),
+        q, k, v, g)
+    gates.hold_attention(fused, _recorded(case),
+                         gates.exact_attention(q, k, v, g, pos, causal))
 
 
 def write_reference(path=REFERENCE):

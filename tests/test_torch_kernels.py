@@ -108,14 +108,6 @@ def test_ops_uses_the_plain_version_on_cpu(monkeypatch):
     assert spans.total("gf.launches") == before == 0
 
 
-def test_kernel_wrapper_refuses_cpu_tensors():
-    """No fallback: the CUDA wrapper raises on what it cannot launch on."""
-    a, b = _rand(4, 4, 4, 8)
-    with pytest.raises(ValueError, match="CUDA"):
-        gf_matmul_cuda(torch.from_numpy(a), torch.from_numpy(b))
-    assert spans.total("gf.launches") == 0
-
-
 @pytest.mark.parametrize("fn", [ops.gf_matmul, ref.gf_matmul_ref,
                                 gf_matmul_cuda])
 def test_operand_checks(fn):

@@ -12,13 +12,14 @@ handing the optimizer the accumulators with ``n_micro`` leaves the plain
 route's result bitwise what dividing them first gave.
 
 On the card (marked ``chip``, skipped without one): the kernel against
-the plain version at mixed dtypes, unaligned tensors and more tensors than
-one launch holds, with the plain update run at the kernel's clip: m and v
-within 2 fp32 ulps, each parameter within 1 ulp of its dtype (the
-arithmetic is the plain version's, operation for operation; ``powf`` may
-round the bias corrections otherwise), the norm within 1e-5 relative of
-the plain version's (fp32 sums) and of an fp64 norm; and a captured
-replay bitwise the eager call.
+the plain version at mixed dtypes, unaligned tensors, more tensors than
+one launch holds and the leaves of olmo-1b (1.28 B parameters) and of
+OLMoE's share in the benchmark (1.147 B), by the gates of
+``repro_torch.kernels.gates.adamw_against_plain`` (which ``chip_smoke.py``
+calls too): against the plain update run at the kernel's clip, m and v
+within 2 fp32 ulps and each parameter within 1 ulp of its dtype; the norm
+within 1e-5 relative of the plain version's (fp32 sums) and 1e-6 of an
+fp64 norm; and a captured replay bitwise the eager call.
 """
 import bisect
 import json
@@ -33,6 +34,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.kernels import adamw as kadamw
+from repro_torch.kernels import gates
 from repro_torch.kernels import nvcc
 from repro_torch.models import (ModelConfig, MoEShareConfig, Transformer,
                                 init_params)
@@ -219,7 +221,6 @@ def _call(params, grads, m, v, step):
 
 
 @pytest.mark.parametrize("spoil, match", [
-    (lambda ops: None, "CUDA"),
     (lambda ops: ops[0].__setitem__(1, ops[0][1].half()), "dtypes"),
     (lambda ops: ops[1].__setitem__(0, ops[1][0].double()), "dtypes"),
     (lambda ops: ops[3].__setitem__(2, ops[3][2].bfloat16()), "dtypes"),
@@ -230,9 +231,9 @@ def _call(params, grads, m, v, step):
     (lambda ops: ops[3].pop(), "moments"),
 ])
 def test_wrapper_refuses(monkeypatch, spoil, match):
-    """CPU tensors, fp16 or fp64 operands, m and v of two dtypes, a
-    non-contiguous or misshapen tensor, lists of unequal lengths: a
-    ValueError before anything is built."""
+    """fp16 or fp64 operands, m and v of two dtypes, a non-contiguous or
+    misshapen tensor, lists of unequal lengths: a ValueError before
+    anything is built (CPU tensors: ``test_torch_kernel_loader.py``)."""
     monkeypatch.setattr(kadamw, "build_library", pytest.fail)
     ops = list(_operands())
     spoil(ops)
@@ -310,38 +311,10 @@ def test_n_micro_leaves_the_plain_route_bitwise(gdt, n_micro):
 
 # -- the kernel on the card ---------------------------------------------------
 
-def _ulps(got, want):
-    """|got - want| in ulps of ``want``'s dtype at each element of want."""
-    exp = torch.frexp(want.float().abs())[1]
-    bits = 8 if want.dtype == BF else 24
-    ulp = torch.ldexp(torch.ones_like(want, dtype=F32), exp - bits)
-    return float(((got.float() - want.float()).abs() / ulp).max())
-
-
-def _draw(shapes, dtypes, mdt, gdt, seed, dev, offset=0):
-    """Parameters, accumulators and moments at step 9 from ``seed``; with
-    ``offset`` each tensor a view that starts ``offset`` elements into a
-    larger buffer (not 16-byte aligned)."""
-    gen = torch.Generator().manual_seed(seed)
-
-    def make(shape, dtype, scale, square=False):
-        x = torch.randn(offset + torch.Size(shape).numel(), generator=gen)
-        x = (x * x if square else x) * scale
-        return x.to(dtype).to(dev)[offset:].view(shape)
-
-    params = {f"w{i}": make(s, d, 0.02) for i, (s, d) in
-              enumerate(zip(shapes, dtypes))}
-    acc = {n: make(p.shape, gdt, 0.02) for n, p in params.items()}
-    state = optimizer.OptState(
-        step=torch.full((), 9, dtype=torch.int32, device=dev),
-        m={n: make(p.shape, mdt, 1e-3) for n, p in params.items()},
-        v={n: make(p.shape, mdt, 1e-6, square=True)
-           for n, p in params.items()})
-    return params, acc, state
-
-
 CARD_CASES = [
-    # label, shapes, parameter dtypes, moment dtype, gradient dtype, offset
+    # label, shapes (or a train configuration, whose leaves' shapes and
+    # dtypes are drawn on the card), parameter dtypes, moment dtype,
+    # gradient dtype, offset
     ("olmoe-like", [(2048, 64), (50304, 64), (64,), (16, 2048, 128)],
      [BF, BF, F32, BF], F32, F32, 0),
     ("bf16-moments-and-grads", [(1000, 33), (7,), (65537,)],
@@ -349,6 +322,8 @@ CARD_CASES = [
     ("unaligned", [(999, 31), (5,), (70001,)], [BF, BF, F32], F32, F32, 3),
     ("three-launches", [(257,)] * 300 + [(3, 3)] * 300, [BF] * 600, F32,
      F32, 0),
+    ("olmo-1b-leaves", "olmo-1b", None, F32, F32, 0),      # 1.28 B
+    ("olmoe-share-leaves", "olmoe-1b-7b-ec8.json", None, F32, F32, 0),
 ]
 
 
@@ -359,40 +334,14 @@ CARD_CASES = [
 def test_kernel_against_plain(card, label, shapes, dtypes, mdt, gdt, offset,
                               n_micro):
     dev = torch.device("cuda", 0)
-    cfg = OptimizerConfig()
-    fused = kadamw.FusedAdamW()
-    p1, acc, s1 = _draw(shapes, dtypes, mdt, gdt, 3, dev, offset)
-    spans.reset()
-    norm = optimizer._fused_update(cfg, p1, acc, s1, cfg.lr, n_micro, fused)
-    assert spans.total("optim.launches") == \
-        2 * len(kadamw.chunk_map([p.numel() for p in p1.values()]))
-    # the plain update at the kernel's clip, and the plain norm
-    p2, acc2, s2 = _draw(shapes, dtypes, mdt, gdt, 3, dev, offset)
-    grads = {n: a.float().div_(n_micro) for n, a in acc2.items()}
-    clip = torch.clamp(cfg.grad_clip / (norm + 1e-9), max=1.0)
-    optimizer._adamw_update(cfg, p2, grads, s2, cfg.lr, clip)
-    plain_norm = float(optimizer.global_norm(list(grads.values())))
-    exact = float(torch.sqrt(sum(torch.sum(g.double() ** 2)
-                                 for g in grads.values())))
-    assert abs(float(norm) - plain_norm) <= 1e-5 * plain_norm
-    assert abs(float(norm) - exact) <= 1e-6 * exact
-    assert float(clip) < 1.0        # the clip is exercised
-    for n in p1:
-        assert _ulps(s1.m[n], s2.m[n]) <= 2 and _ulps(s1.v[n], s2.v[n]) <= 2
-        assert _ulps(p1[n], p2[n]) <= 1
-    # a captured replay is bitwise the eager call
-    p3, acc3, s3 = _draw(shapes, dtypes, mdt, gdt, 3, dev, offset)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        norm3 = optimizer._fused_update(cfg, p3, acc3, s3, cfg.lr, n_micro,
-                                        fused)
-    graph.replay()
-    torch.cuda.synchronize()
-    assert torch.equal(norm3, norm)
-    for n in p1:
-        assert torch.equal(p3[n], p1[n]) and torch.equal(s3.m[n], s1.m[n]) \
-            and torch.equal(s3.v[n], s1.v[n])
+    on = "cpu"
+    if isinstance(shapes, str):
+        shapes, dtypes = zip(*[(p.shape, p.dtype) for p in Transformer(
+            _model(shapes), "meta", allow_meta=True).parameters()])
+        on = dev
+    draw = dict(shapes=shapes, dtypes=dtypes, mdt=mdt, gdt=gdt, seed=3,
+                device=dev, offset=offset, on=on)
+    gates.adamw_against_plain(draw, OptimizerConfig(), n_micro, label)
 
 
 @pytest.mark.chip
