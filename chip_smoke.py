@@ -264,7 +264,20 @@ nonzero:
       call of two launches and no plain one; then ``optimizer_phase`` at
       the share's leaves (bf16, the router fp32), with 7b's gates.  The
       ``kernels`` record's ``adamw`` entry holds both and the optimizer's
-      ms in 7b's profiled eager step and replay.
+      ms in 7b's profiled eager step and replay.  The profiled step must
+      also run every combine on the gather kernels
+      (``kernels/csrc/moe_gather.cu``: 32 forwards and 16 backwards, none
+      plain) in 64 launches (the dispatch's 16 backwards too).  Then
+      ``gather_phase``: the kernels against the plain versions at OLMoE's
+      microbatch (T 8,192, K 8, d 2,048, 16 of 64 experts held) under the
+      benchmark's router, a skewed one, and the skewed one over the
+      capacity plan of ``perfbench/tools/faults_moe.py`` (drops), by
+      ``repro_torch.kernels.gates.moe_gather_against_plain`` (the gates of
+      their ``chip`` tests: y, gx and gye bitwise, gg within 2**-17 of
+      |gy| . |row|, a replay bitwise the eager calls); then each call's
+      events at the benchmark's router beside its bytes bound and the
+      plain version, a step's (by the profiled step's counts) within 2.5x
+      the bound: the ``kernels`` record's ``moe_gather`` entry.
 
 8. Sharding (``repro_torch.distributed``, ``repro_torch.launch``):
 
@@ -402,8 +415,21 @@ BF16_FLOPS_PER_S = 989e12         # H100 SXM, dense
 # checkpoint); a step's attention calls: layers x microbatches x 2 (the
 # forward and its recomputation)
 MOE_CONFIG = "perfbench/configs/olmoe-1b-7b-ec8.json"
-MOE_COUNTERS = ATTN_COUNTERS + ("moe.launches", "gf.launches")
+MOE_COUNTERS = ATTN_COUNTERS + ("moe.launches", "gf.launches",
+                                 "moe.combine.fused", "moe.combine.plain",
+                                 "moe.gather.launches")
 MOE_PAIRS = (1.0, 4.0)            # held pairs a token and layer (about 2)
+# phase 7c: the MoE share's gathers (kernels/csrc/moe_gather.cu) at OLMoE's
+# microbatch: the gates of kernels.gates.moe_gather_against_plain under
+# the benchmark's router and a skewed one (router skew, capacity plan);
+# a step's calls from the profiled step's counters, within 2.5x the bytes
+# bound by the kernels' own events
+GATHER_SHAPE = dict(T=8192, K=8, d=2048, experts=64, first=0, held=16)
+GATHER_CASES = (("benchmark router", 0.0, False),
+                ("skewed router", 2.0, False),
+                ("skewed router, capacity plan", 2.0, True))
+GATHER_BOUND_RATIO = 2.5
+GATHER_REPS = 20
 # phases 7b and 7c: the fused AdamW (kernels/csrc/adamw.cu) at the train
 # configurations' leaves: the gates of kernels.gates.adamw_against_plain;
 # its own events within 1.5x the bytes bound; a profiled eager step one
@@ -806,15 +832,20 @@ def moe_main_path(seed: int, root: pathlib.Path) -> dict:
     dropped = spans.device_total("moe.dropped")
     per_token = pairs / (B * S * cfg.num_layers)
     calls = cfg.num_layers * conf["n_micro"] * (2 if cfg.remat else 1)
+    backwards = cfg.num_layers * conf["n_micro"]
+    gathers = {"moe.combine.fused": calls + backwards,
+               "moe.combine.plain": 0,
+               "moe.gather.launches": calls + 2 * backwards}
     if counts["attn.fused"] != calls or counts["attn.chunked"] or \
             counts["attn.launches.forward"] != calls or dropped or \
             counts["gf.launches"] or \
             {c: counts[c] for c in OPTIM_COUNTERS} != OPTIM_STEP or \
+            {c: counts[c] for c in gathers} != gathers or \
             not MOE_PAIRS[0] <= per_token <= MOE_PAIRS[1]:
         raise AssertionError(
             f"the OLMoE step: counters {counts} (want {calls} fused "
             f"attention calls and launches, none chunked, no GF launch, "
-            f"the optimizer's {OPTIM_STEP}), "
+            f"the optimizer's {OPTIM_STEP}, the gathers' {gathers}), "
             f"{dropped} pairs dropped, {per_token:.3f} held pairs a token "
             f"and layer (want {MOE_PAIRS})")
     del prof["order"]
@@ -832,7 +863,10 @@ def moe_main_path(seed: int, root: pathlib.Path) -> dict:
         f"{counts['moe.launches']} grouped products, {counts['gf.launches']} "
         f"GF launches, {counts['optim.fused']} fused AdamW call of "
         f"{counts['optim.launches']} launches "
-        f"({counts['optim.plain']} plain); {per_token:.4f} held pairs a "
+        f"({counts['optim.plain']} plain), {counts['moe.combine.fused']} "
+        f"combines on the gather kernels ({counts['moe.combine.plain']} "
+        f"plain) in {counts['moe.gather.launches']} launches; "
+        f"{per_token:.4f} held pairs a "
         f"token and layer, "
         f"{dropped} dropped")
     log(profile_line("  OLMoE eager step profile", prof))
@@ -879,6 +913,103 @@ def moe_main_path(seed: int, root: pathlib.Path) -> dict:
         f"launches in all); peak {rec['state']['peak_gib']:.2f} GiB")
     del state, restored, got, want, ckpt, coder, model, opt
     fresh_peak()
+    return rec
+
+
+def gather_phase(seed: int, step: dict) -> dict:
+    """Phase 7c's MoE gathers (``kernels/csrc/moe_gather.cu``; see the
+    module docstring): the kernels against the plain versions by
+    ``kernels.gates.moe_gather_against_plain`` at OLMoE's microbatch
+    (``GATHER_SHAPE``) under each of ``GATHER_CASES``; then, at the
+    benchmark's router, each call's time by its own events beside its
+    bytes (each input byte read once, each output byte written once) and
+    the plain version's time; a step's from ``step``'s counters (the
+    profiled eager step of ``moe_main_path``: the combine's forwards and
+    backwards, the launches), which must stay within
+    ``GATHER_BOUND_RATIO`` of the bound.  Returns the record."""
+    from perfbench.tools.faults_moe import capacity_plan
+    from repro_torch.kernels import gates
+    from repro_torch.kernels import moe_gather as kmg
+    from repro_torch.models import moe
+
+    dev = torch.device(DEVICE, torch.cuda.current_device())
+    shape = dict(GATHER_SHAPE)
+    experts = shape.pop("experts")
+    t0 = time.perf_counter()
+    _, build_out = kmg.build()
+    kmg.library()
+    build_s = time.perf_counter() - t0
+    ptxas = [line.strip() for line in build_out.splitlines()
+             if any(w in line for w in ("registers", "spill"))]
+
+    def plan(top, first, held):
+        return capacity_plan(top, first, held, experts)
+    held = {}
+    for label, skew, capacity in GATHER_CASES:
+        ops = gates.moe_gather_operands(
+            **shape, experts=experts, seed=seed, device=dev, skew=skew,
+            plan=plan if capacity else None)
+        held[label] = gates.moe_gather_against_plain(ops, label)
+        log(f"  MoE gathers, {label}: {ops['held']} held pairs "
+            f"({ops['dropped']} dropped, at most {ops['top_held']} a token);"
+            f" y, gx, gye bitwise, gg within "
+            f"{held[label]['gg_gaps']['plain']:.3g} of |gy|.|row| (fused "
+            f"{held[label]['gg_gaps']['fused_exact']:.3g}, plain "
+            f"{held[label]['gg_gaps']['plain_exact']:.3g} from fp64); "
+            "replay bitwise")
+        del ops
+    ops = gates.moe_gather_operands(**shape, experts=experts, seed=seed,
+                                    device=dev)
+    ye, gy, gt = ops["ye"], ops["gy"], ops["gates"]
+    row, valid, pair = ops["row"], ops["valid"], ops["pair"]
+    (R, d), (T, K) = ye.shape, row.shape
+    H, size = ops["held"], ye.element_size()
+    plan_bytes = T * K * (8 + 1)
+    calls = {
+        "forward": (lambda: kmg.gather_sum(ye, row, valid, gt),
+                    lambda: moe.gather_sum_plain(ye, row, valid, gt),
+                    H * d * size + T * d * 4 + plan_bytes + T * K * 4),
+        "dispatch_backward": (
+            lambda: kmg.gather_sum(ye, row, valid, out_dtype=ye.dtype),
+            lambda: moe.gather_sum_plain(ye, row, valid).to(ye.dtype),
+            H * d * size + T * d * size + plan_bytes),
+        "backward": (
+            lambda: kmg.combine_backward(gy, ye, gt, row, valid, pair),
+            lambda: moe.combine_backward_plain(gy, ye, gt, row, valid, pair),
+            T * d * 4 + H * d * size + R * d * size + plan_bytes
+            + T * K * 8 + R * 8)}
+    per_call = {}
+    for name, (fused, plain, nbytes) in calls.items():
+        per_call[name] = dict(
+            ms=cuda_ms(fused, GATHER_REPS), plain_ms=cuda_ms(plain, 3),
+            bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+    del ops, ye, gy, gt, row, valid, pair
+    fresh_peak()
+    backwards = step["moe.gather.launches"] - step["moe.combine.fused"]
+    count = {"forward": step["moe.combine.fused"] - backwards,
+             "dispatch_backward": backwards, "backward": backwards}
+    total = {key: sum(count[n] * per_call[n][key] for n in calls)
+             for key in ("ms", "plain_ms", "bound_ms")}
+    rec = dict(name="moe_gather", route="cuda",
+               source="src/repro_torch/kernels/csrc/moe_gather.cu",
+               replaces=None, shape=GATHER_SHAPE, held_pairs=H,
+               build_s=build_s, ptxas=ptxas, gates=held, per_call=per_call,
+               step_calls=count, step=total,
+               step_counters={c: step[c] for c in
+                              ("moe.combine.fused", "moe.combine.plain",
+                               "moe.gather.launches")})
+    log("  MoE gathers a call (ms by own events; bound; plain): "
+        + "; ".join(f"{n} {r['ms']:.4f} ({r['bound_ms']:.4f}; "
+                    f"{r['plain_ms']:.3f})" for n, r in per_call.items())
+        + f"; a step ({count}) {total['ms']:.3f} ms, bound "
+        f"{total['bound_ms']:.3f}, plain {total['plain_ms']:.3f}; build "
+        f"{build_s:.2f} s")
+    for line in ptxas:
+        log("    ptxas:", line)
+    if total["ms"] > GATHER_BOUND_RATIO * total["bound_ms"]:
+        raise AssertionError(f"the MoE gathers: {total['ms']:.3f} ms a step,"
+                             f" over {GATHER_BOUND_RATIO}x their bound "
+                             f"{total['bound_ms']:.3f} ms")
     return rec
 
 
@@ -3450,6 +3581,7 @@ def main(argv=None) -> int:
     adamw["olmoe_step_calls"] = {c: moe_rec["step"][c]
                                  for c in OPTIM_COUNTERS}
     kernels.append(adamw)
+    kernels.append(gather_phase(args.seed, moe_rec["step"]))
     results["train"] = dict(serve=serve_rec, train=train_rec, moe=moe_rec)
     results["train_s"] = time.perf_counter() - t0
     log(f"serving and training: {results['train_s']:.1f} s")

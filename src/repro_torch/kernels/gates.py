@@ -37,6 +37,24 @@ round the bias corrections otherwise); the norm within 1e-5 relative of
 the plain version's (fp32 sums) and 1e-6 of an fp64 norm; two launches
 for each group of the chunk map; and a captured replay bitwise the eager
 call.
+
+The MoE share's gathers (``moe_gather_against_plain``): the kernels of
+``kernels.moe_gather`` against the plain versions of ``models.moe`` on the
+same plan, rows and gradients, with the rows of pairs not held set to NaN
+(a grouped product leaves them unspecified):
+
+* the combine's ``y``, the dispatch's backward ``gx`` and the combine's
+  backward ``gye`` bitwise the plain versions': the same products and
+  adds in the same order, each rounded to nearest;
+* the combine's ``gg`` within ``GATHER_GG_RTOL`` = 2**-17 of the dot
+  product of the absolute values (|gy| . |row|), element by element, of
+  the plain version's: a d-term fp32 dot product summed in another order
+  (the kernel: 8 FMAs a thread, a warp's shuffles, the warps in order;
+  PyTorch: its own reduction tree), each side within about 24 roundings
+  of the exact sum, 1.4e-6 of that bound at most (2**-17 is 7.6e-6);
+  both sides' errors against an fp64 dot product are recorded;
+* one launch a call, and a CUDA graph of the three calls, replayed,
+  bitwise the eager calls.
 """
 from __future__ import annotations
 
@@ -56,6 +74,7 @@ ATTN_ULPS, ATTN_RATIO = 3.0, 1.1
 ATTN_NAMES = ("out", "dq", "dk", "dv")
 ADAMW_ULPS = dict(m=2.0, v=2.0, p=1.0)
 ADAMW_NORM_RTOL, ADAMW_EXACT_RTOL = 1e-5, 1e-6
+GATHER_GG_RTOL = 2.0 ** -17
 
 
 # -- attention ----------------------------------------------------------------
@@ -257,4 +276,107 @@ def adamw_against_plain(draw: dict, cfg, n_micro: int, label: str = ""
             f"({2 * groups} launches; gates: ulps {ADAMW_ULPS}, norm "
             f"{ADAMW_NORM_RTOL} of the plain and {ADAMW_EXACT_RTOL} of the "
             "fp64 norm, a clip below 1, a replay bitwise the eager call)")
+    return rec
+
+
+# -- the MoE share's gathers --------------------------------------------------
+
+def moe_gather_operands(T: int, K: int, d: int, experts: int, first: int,
+                        held: int, *, seed: int, device, skew: float = 0.0,
+                        plan: Callable = None, dtype=BF) -> dict:
+    """A share's combine operands, drawn on ``device`` from ``seed``: the
+    top ``K`` of ``experts`` router logits of T tokens (N(0, 1) tokens of
+    width ``d`` through a router drawn as ``MoE.reset`` draws it, N(0,
+    1/d); ``skew`` added to the held experts ``first .. first + held -
+    1``' logits), sorted stably as ``MoEShare`` sorts them, their softmax
+    probabilities as gates; ``plan(top_ids, first, held)`` (default
+    ``models.moe.share_plan``) places the pairs; the rows ``ye`` (R, d) in
+    ``dtype``, NaN past the held pairs' rows; the upstream gradient ``gy``
+    (T, d) fp32.  Returns the operands and the plan's counts."""
+    from ..models import moe
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    x = torch.randn((T, d), generator=gen, device=device)
+    router = torch.randn((d, experts), generator=gen, device=device) \
+        / math.sqrt(d)
+    logits = x @ router
+    logits[:, first:first + held] += skew
+    top = torch.sort(logits, dim=-1, descending=True,
+                     stable=True).indices[:, :K]
+    gates = torch.gather(torch.softmax(logits, dim=-1), 1, top)
+    row, valid, pair, offs, counts = (plan or moe.share_plan)(top, first,
+                                                              held)
+    ye = torch.randn((pair.shape[0], d), generator=gen, device=device) \
+        .to(dtype)
+    ye[int(valid.sum()):] = float("nan")
+    gy = torch.randn((T, d), generator=gen, device=device)
+    return dict(ye=ye, gates=gates, row=row, valid=valid, pair=pair, gy=gy,
+                held=int(counts[0]), dropped=int(counts[1]),
+                top_held=int(valid.sum(1).max()))
+
+
+def _gather_calls(ops: dict) -> List[torch.Tensor]:
+    """The kernels' three calls: the combine's forward (y), the dispatch's
+    backward with ``ye`` in the gradient's place (gx), the combine's
+    backward (gye, gg)."""
+    from . import moe_gather as kmg
+    y = kmg.gather_sum(ops["ye"], ops["row"], ops["valid"], ops["gates"])
+    gx = kmg.gather_sum(ops["ye"], ops["row"], ops["valid"],
+                        out_dtype=ops["ye"].dtype)
+    gye, gg = kmg.combine_backward(ops["gy"], ops["ye"], ops["gates"],
+                                   ops["row"], ops["valid"], ops["pair"])
+    return [y, gx, gye, gg]
+
+
+def moe_gather_against_plain(ops: dict, label: str = "") -> dict:
+    """The MoE gathers' kernels against the plain versions on the card, on
+    ``moe_gather_operands``' ``ops``: the gates of the module docstring.
+    Returns the launches, the plan's counts, the bitwise readings and
+    ``gg``'s largest gaps over |gy| . |row| (fused against plain, and each
+    against fp64)."""
+    from ..models import moe
+    ye, gy, gates = ops["ye"], ops["gy"], ops["gates"]
+    row, valid, pair = ops["row"], ops["valid"], ops["pair"]
+    launch0 = spans.total("moe.gather.launches")
+    y, gx, gye, gg = fused = _gather_calls(ops)
+    launches = spans.total("moe.gather.launches") - launch0
+    plain = [moe.gather_sum_plain(ye, row, valid, gates),
+             moe.gather_sum_plain(ye, row, valid).to(ye.dtype),
+             *moe.combine_backward_plain(gy, ye, gates, row, valid, pair)]
+    bitwise = {name: bool(torch.equal(a, b)) for name, a, b in
+               zip(("y", "gx", "gye"), fused, plain)}
+    finite = all(bool(torch.isfinite(t).all()) for t in fused)
+    at = torch.clamp(row, max=ye.shape[0] - 1)
+    rows = ye[at].float()
+    scale = torch.where(valid, (gy.abs()[:, None] * rows.abs()).sum(-1), 1.0)
+    exact = torch.where(valid, (gy.double()[:, None] * rows.double())
+                        .sum(-1), 0.0)
+    del rows
+
+    def gap(a, b):
+        return float(((a.double() - b.double()).abs() / scale).max())
+    gg_gaps = dict(plain=gap(gg, plain[3]), fused_exact=gap(gg, exact),
+                   plain_exact=gap(plain[3], exact))
+    # a captured replay is bitwise the eager calls
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = _gather_calls(ops)
+    graph.replay()
+    torch.cuda.synchronize()
+    graph_bitwise = all(torch.equal(a, b) for a, b in zip(replayed, fused))
+    captured = spans.total("moe.gather.launches") - launch0 - launches
+    rec = dict(held=ops["held"], dropped=ops["dropped"],
+               top_held=ops["top_held"], launches=launches,
+               captured_launches=captured, bitwise=bitwise, finite=finite,
+               gg_gaps=gg_gaps, graph_bitwise=graph_bitwise)
+    del graph, replayed, fused, plain, exact, scale
+    if launches != 3 or captured != 3 or not all(bitwise.values()) or \
+            not finite or gg_gaps["plain"] > GATHER_GG_RTOL or \
+            not graph_bitwise:
+        raise AssertionError(
+            f"the MoE gathers against the plain versions {label}: {rec} "
+            f"(gates: 3 launches eager and 3 captured, y, gx and gye "
+            f"bitwise, gg within {GATHER_GG_RTOL} of |gy| . |row|, a "
+            "replay bitwise the eager calls)")
     return rec

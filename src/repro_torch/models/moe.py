@@ -48,15 +48,21 @@ captured as a CUDA graph:
 
 Every index movement is a gather both ways (``_Dispatch``, ``_Combine``:
 forward and backward), with no scatter-add, so a step and its graph give
-the same bits.  Spans ``moe.route``, ``moe.dispatch``, ``moe.experts``,
-``moe.combine``, ``moe.aux``; device times ``moe`` (the layer) and
-``moe.products`` (each grouped product, forward and backward)
-(``obs.spans.timed``).
+the same bits.  On CUDA tensors the combine, forward and backward, and the
+dispatch's backward run on hand kernels that read only the held pairs
+(``kernels.moe_gather``, imported at the first such call); on every other
+device on their plain versions (:func:`gather_sum_plain`,
+:func:`combine_backward_plain`), whose arithmetic the kernels follow.
+Spans ``moe.route``, ``moe.dispatch``, ``moe.experts``, ``moe.combine``,
+``moe.aux``; counters ``moe.combine.fused``, ``moe.combine.plain``;
+device times ``moe`` (the layer) and ``moe.products`` (each grouped
+product, forward and backward) (``obs.spans.timed``).
 """
 from __future__ import annotations
 
 import functools
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -231,50 +237,100 @@ def share_plan(top_ids: torch.Tensor, first: int, held: int):
             torch.cumsum(n, 0).to(torch.int32), counts)
 
 
+def gather_sum_plain(src: torch.Tensor, row: torch.Tensor,
+                     valid: torch.Tensor,
+                     scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(T, d) fp32: each token's held pairs' rows of ``src`` (R, d), times
+    ``scale`` (T, K) fp32 if given, added to zero one pair at a time in k
+    order (a row past R read at R - 1; the rows of pairs not held,
+    unspecified after a grouped product, masked out).  The plain version
+    of ``kernels.moe_gather.gather_sum``, which follows its arithmetic
+    operation for operation."""
+    at = torch.clamp(row, max=src.shape[0] - 1)
+    y = torch.zeros((row.shape[0], src.shape[1]), dtype=torch.float32,
+                    device=src.device)
+    for k in range(row.shape[1]):
+        x = src[at[:, k]].float()
+        if scale is not None:
+            x = scale[:, k, None] * x
+        y = y + torch.where(valid[:, k, None], x, 0.0)
+    return y
+
+
+def combine_backward_plain(gy: torch.Tensor, src: torch.Tensor,
+                           gates: torch.Tensor, row: torch.Tensor,
+                           valid: torch.Tensor, pair: torch.Tensor):
+    """The combine's gradients from ``gy`` (T, d) fp32: (gye (R, d) in
+    ``src``'s dtype, row r its pair's gate times its token's ``gy`` and
+    zero where the pair is not held; gg (T, K) fp32, each held pair's
+    ``gy`` dot its row of ``src``, zero for the others).  The plain version
+    of ``kernels.moe_gather.combine_backward``."""
+    K = row.shape[1]
+    at = torch.clamp(row, max=src.shape[0] - 1)
+    gg = torch.where(valid, (gy[:, None] * src[at].float()).sum(-1), 0.0)
+    tok = torch.div(pair, K, rounding_mode="floor")
+    live = valid.reshape(-1)[pair]
+    gye = torch.where(live[:, None], gates.reshape(-1)[pair, None]
+                      * gy[tok], 0.0).to(src.dtype)
+    return gye, gg
+
+
+def _gather_sum(src, row, valid, scale=None, out_dtype=torch.float32):
+    """:func:`gather_sum_plain`'s function, cast to ``out_dtype``: the hand
+    kernel on CUDA tensors, the plain version on every other device."""
+    if src.device.type == "cuda":
+        from ..kernels import moe_gather
+        return moe_gather.gather_sum(src, row, valid, scale, out_dtype)
+    return gather_sum_plain(src, row, valid, scale).to(out_dtype)
+
+
 class _Dispatch(torch.autograd.Function):
     """x (T, d) -> the buffer's rows (R, d), row r of token pair[r] // K.
     The backward gathers each token's K rows back and sums the valid ones
-    over K in fp32 (a gather and a sum: no scatter-add, the same bits on
-    every run)."""
+    over K in fp32, in k order (:func:`_gather_sum`: a gather and a sum, no
+    scatter-add, the same bits on every run)."""
 
     @staticmethod
     def forward(ctx, x, pair, row, valid):
         K = row.shape[1]
         ctx.save_for_backward(row, valid)
-        ctx.rows = pair.shape[0]
         return x.index_select(0, torch.div(pair, K, rounding_mode="floor"))
 
     @staticmethod
     def backward(ctx, g):
         row, valid = ctx.saved_tensors
-        at = torch.clamp(row, max=ctx.rows - 1)
-        gx = torch.where(valid[..., None], g[at].float(), 0.0).sum(1)
-        return gx.to(g.dtype), None, None, None
+        return (_gather_sum(g.contiguous(), row, valid, out_dtype=g.dtype),
+                None, None, None)
 
 
 class _Combine(torch.autograd.Function):
     """ye (R, d), gates (T, K) fp32 -> y (T, d) fp32: each token's valid
-    pairs, gate times its row, summed over K in fp32 (one reduction
-    kernel: the same bits on every run).  Rows of no valid pair
-    (unspecified after a grouped product) are masked out, forward and
-    backward; each row's gradient is a gather of its token's."""
+    pairs, gate times its row, summed over K in fp32 in k order
+    (:func:`_gather_sum`: the same bits on every run).  Rows of no valid
+    pair (unspecified after a grouped product) are masked out, forward and
+    backward; each row's gradient is its token's, times its gate
+    (:func:`combine_backward_plain`, or the hand kernel on CUDA tensors).
+    Counters ``moe.combine.fused`` and ``moe.combine.plain``: a call of
+    each route, forward or backward."""
 
     @staticmethod
     def forward(ctx, ye, gates, row, valid, pair):
-        at = torch.clamp(row, max=ye.shape[0] - 1)
-        ctx.save_for_backward(ye, gates, at, valid, pair)
-        return torch.where(valid[..., None],
-                           gates[..., None] * ye[at].float(), 0.0).sum(1)
+        ctx.save_for_backward(ye, gates, row, valid, pair)
+        spans.count("moe.combine.fused" if ye.device.type == "cuda"
+                    else "moe.combine.plain")
+        return _gather_sum(ye, row, valid, gates)
 
     @staticmethod
     def backward(ctx, gy):
-        ye, gates, at, valid, pair = ctx.saved_tensors
-        K = at.shape[1]
-        gg = torch.where(valid, (gy[:, None] * ye[at].float()).sum(-1), 0.0)
-        tok = torch.div(pair, K, rounding_mode="floor")
-        live = valid.reshape(-1)[pair]
-        gye = torch.where(live[:, None], gates.reshape(-1)[pair, None]
-                          * gy[tok], 0.0).to(ye.dtype)
+        ye, gates, row, valid, pair = ctx.saved_tensors
+        if ye.device.type == "cuda":
+            from ..kernels import moe_gather
+            spans.count("moe.combine.fused")
+            gye, gg = moe_gather.combine_backward(gy.contiguous(), ye, gates,
+                                                  row, valid, pair)
+        else:
+            spans.count("moe.combine.plain")
+            gye, gg = combine_backward_plain(gy, ye, gates, row, valid, pair)
         return gye, gg, None, None, None
 
 

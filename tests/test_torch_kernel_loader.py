@@ -19,6 +19,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import adamw as kadamw
 from repro_torch.kernels import attention as kattn
+from repro_torch.kernels import moe_gather as kmg
 from repro_torch.obs import spans
 
 # the module: the package's name ``gf_matmul`` is the dispatcher function
@@ -33,6 +34,8 @@ WRAPPERS = {
                   ("attn_forward", "attn_backward")),
     "adamw": (kadamw, lambda: kadamw.library(), kadamw.GEOMETRY,
               ("adamw_sumsq_launch", "adamw_update_launch")),
+    "moe_gather": (kmg, lambda: kmg.library(), kmg.GEOMETRY,
+                   ("moe_gather_sum_launch", "moe_combine_backward_launch")),
 }
 
 
@@ -123,10 +126,17 @@ def _adamw_on_cpu():
                         b2=0.95, eps=1e-8, weight_decay=0.1, grad_clip=1.0)
 
 
+def _moe_gather_on_cpu():
+    row = torch.zeros((4, 2), dtype=torch.int64)
+    kmg.gather_sum(torch.zeros((8, 16)), row, row > 0,
+                   torch.ones((4, 2)))
+
+
 @pytest.mark.parametrize("name, call, counter", [
     ("gf_matmul", _gf_on_cpu, "gf.launches"),
     ("attention", _attention_on_cpu, "attn.launches.forward"),
     ("adamw", _adamw_on_cpu, "optim.launches"),
+    ("moe_gather", _moe_gather_on_cpu, "moe.gather.launches"),
 ])
 def test_wrapper_refuses_cpu_tensors(monkeypatch, name, call, counter):
     """No fallback: a wrapper raises on what it cannot launch on, before
