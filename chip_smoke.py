@@ -278,6 +278,18 @@ nonzero:
       events at the benchmark's router beside its bytes bound and the
       plain version, a step's (by the profiled step's counts) within 2.5x
       the bound: the ``kernels`` record's ``moe_gather`` entry.
+   d. The benchmark's DeepSeek-V2-Lite share (``mla_phase``;
+      ``scripts/mla_phase.py`` runs it alone): the fused attention's
+      (192, 128) variant, built at this phase; its gates at 2 x 4,096 x
+      16 heads (q, k 192 wide, v 128, the configuration's softmax scale
+      0.114721) against ``chunked_attention``; its time a call over the
+      bound of ``perfbench/roofline_mla.py``, at most 1.5 times the D =
+      128 variant's own ratio timed here at the same (B, S, H); a
+      profiled eager step of the share (5 layers, 16 of 64 experts held,
+      top-6, 2 microbatches of 8,192 tokens): 20 forward and 10 backward
+      launches of the variant, no chunked call, no pair dropped, one
+      fused AdamW call of two launches.  The ``kernels`` record's
+      ``attention (192, 128)`` entry.
 
 8. Sharding (``repro_torch.distributed``, ``repro_torch.launch``):
 
@@ -439,6 +451,13 @@ OPTIM_STEP = {"optim.fused": 1, "optim.plain": 0, "optim.launches": 2}
 OPTIM_BOUND_RATIO = 1.5
 OPTIM_REPS = 5
 OPTIM_KERNELS = ("adamw_sumsq", "adamw_update")
+# phase 7d: the benchmark's DeepSeek-V2-Lite share: the fused attention's
+# (192, 128) variant held to chunked_attention at its microbatch, its time
+# a call over its bound within 1.5x the D = 128 variant's own ratio at the
+# same (B, S, H), and a profiled eager step's launch counts
+MLA_CONFIG = "perfbench/configs/deepseek-v2-lite-ec8.json"
+MLA_SHAPE = dict(B=2, S=4096, H=16, KV=16, D=192, v_dim=128)
+MLA_BOUND_RATIO = 1.5
 SHARD_STEPS = 3
 SHARD_RTOL = 1e-5                         # phase 7b's replay gate
 DRYRUN_CELLS = [("yi-6b", "train_4k", False), ("yi-6b", "train_4k", True)]
@@ -676,23 +695,9 @@ def attention_phase(seed: int) -> dict:
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             is_causal=True).transpose(1, 2)}
 
-    def timed(fn):
-        fwd = cuda_ms(fn, ATTN_REPS)
-        ms = []
-        for _ in range(ATTN_REPS + 1):
-            out = fn()
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            torch.autograd.grad(out, (q, k, v), g)
-            e1.record()
-            del out
-            ms.append((e0, e1))
-        torch.cuda.synchronize()
-        return fwd, statistics.median(a.elapsed_time(b) for a, b in ms[1:])
-
     spans.reset()
-    times = {name: timed(fn) for name, fn in routes.items()}
+    times = {name: attention_call_ms(fn, q, k, v, g)
+             for name, fn in routes.items()}
     fwd_flops, bwd_flops = attention_flops(B, S, H, D, True)
     bound = (fwd_flops / BF16_FLOPS_PER_S * 1e3,
              bwd_flops / BF16_FLOPS_PER_S * 1e3)
@@ -750,6 +755,161 @@ def attention_gates(q, k, v, g, pos, label: str):
         "fp64, kernel / plain: " + ", ".join(
             f"{n} {ka:.3e} / {pa:.3e}" for n, (ka, pa) in rms.items()))
     return gaps, rms
+
+
+def attention_call_ms(fn, q, k, v, g, reps: int = ATTN_REPS):
+    """(forward, backward) device ms a call of ``fn()``, attention over q,
+    k and v (which need a gradient): the forward by ``cuda_ms``, the
+    backward (``torch.autograd.grad`` for the upstream ``g``) by CUDA
+    events, the median of ``reps``."""
+    fwd = cuda_ms(fn, reps)
+    ms = []
+    for _ in range(reps + 1):
+        out = fn()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        torch.autograd.grad(out, (q, k, v), g)
+        e1.record()
+        del out
+        ms.append((e0, e1))
+    torch.cuda.synchronize()
+    return fwd, statistics.median(a.elapsed_time(b) for a, b in ms[1:])
+
+
+def mla_phase(seed: int, root: pathlib.Path) -> dict:
+    """Phase 7d: the fused attention's (192, 128) variant, multi-head
+    latent attention's (``scripts/mla_phase.py`` runs it alone).  Its build
+    and ptxas report; its output and dQ, dK, dV against
+    ``chunked_attention`` at DeepSeek-V2-Lite's microbatch (``MLA_SHAPE``,
+    causal, the configuration's softmax scale) by
+    ``kernels.gates.attention_against_plain``; its time a call, forward and
+    backward, over its bound (``perfbench/roofline_mla.attention_flops`` at
+    the bf16 peak), against the D = 128 variant's own ratio at the same
+    (B, S, H) in this run (at most ``MLA_BOUND_RATIO`` times it); then a
+    profiled eager step of the benchmark's share (``MLA_CONFIG``): 20
+    forward and 10 backward launches of the variant (5 layers x 2
+    microbatches, forward and remat's recomputation), no chunked call, no
+    dropped pair, one fused AdamW call.  Returns the kernel's record."""
+    from perfbench import roofline_mla
+    from repro_torch.kernels import attention as kattn
+    from repro_torch.kernels import gates
+    from repro_torch.models import MLAShareConfig, init_params
+    from repro_torch.obs import spans
+    from repro_torch.train import EagerTrainStep, OptimizerConfig, init_opt
+
+    conf = json.loads((root / MLA_CONFIG).read_text())
+    cfg = MLAShareConfig(**conf["model"])
+    scale = cfg.softmax_scale
+    shape = dict(MLA_SHAPE)
+    D, DV = shape["D"], shape["v_dim"]
+    t0 = time.perf_counter()
+    path, out = kattn.build(D, True, DV)
+    kattn.library(D, True, DV)
+    build_s = time.perf_counter() - t0
+    log(f"attention kernel, ({D}, {DV}) variant: build {build_s:.2f} s -> "
+        f"{path.name}")
+    ptxas = [line.strip() for line in out.splitlines()
+             if any(w in line for w in ("registers", "spill", "smem"))]
+    for line in ptxas:
+        log("  ptxas:", line)
+    dev = torch.device(DEVICE, torch.cuda.current_device())
+    q, k, v, g, pos = gates.attention_operands(**shape, seed=seed,
+                                               device=dev)
+    gaps, rms = gates.attention_against_plain(
+        q, k, v, g, pos, True, "at DeepSeek-V2-Lite's microbatch",
+        scale=scale)
+    log(f"  kernel against chunked_attention at {tuple(q.shape)} / "
+        f"{tuple(v.shape)}, scale {scale:.6f}: " + ", ".join(
+            f"{n} {x:.2f}" for n, x in gaps.items())
+        + " bf16 ulps; relative RMS error against fp64, kernel / plain: "
+        + ", ".join(f"{n} {a:.3e} / {b:.3e}" for n, (a, b) in rms.items()))
+    B, S, H = shape["B"], shape["S"], shape["H"]
+    times, ratios = {}, {}
+    for label, (dqk, dv_, sc) in (("d192v128", (D, DV, scale)),
+                                  ("d128", (128, 128, None))):
+        q, k, v, g, pos = gates.attention_operands(
+            B, S, H, H, dqk, seed=seed + 1, device=dev, v_dim=dv_)
+        q, k, v = (t.requires_grad_(True) for t in (q, k, v))
+        fwd, bwd = attention_call_ms(
+            lambda: kattn.fused_attention(q, k, v, pos, causal=True,
+                                          scale=sc), q, k, v, g)
+        bound = [x / BF16_FLOPS_PER_S * 1e3 for x in
+                 roofline_mla.attention_flops(B, S, H, dqk, dv_)]
+        times[label] = dict(forward_ms=fwd, backward_ms=bwd,
+                            bound_forward_ms=bound[0],
+                            bound_backward_ms=bound[1])
+        ratios[label] = (fwd + bwd) / sum(bound)
+        log(f"  a call of the {label} variant at ({B}, {S}, {H}): forward "
+            f"{fwd:.3f} ms, backward {bwd:.3f} ms; bound {bound[0]:.3f} + "
+            f"{bound[1]:.3f}; {ratios[label]:.2f}x the bound")
+        del q, k, v, g
+    torch.cuda.empty_cache()
+    if not ratios["d192v128"] <= MLA_BOUND_RATIO * ratios["d128"]:
+        raise AssertionError(
+            f"the (192, 128) variant at {ratios['d192v128']:.2f}x its "
+            f"bound, over {MLA_BOUND_RATIO} times the D = 128 variant's "
+            f"{ratios['d128']:.2f}x")
+
+    # a profiled eager step of the benchmark's share
+    opt_cfg = OptimizerConfig(**conf["optimizer"])
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    Bs, Ss = conf["batch"], conf["seq_len"]
+    tokens = torch.randint(0, cfg.vocab_size, (2, Bs, Ss), generator=gen,
+                           device=dev, dtype=torch.int32)
+    batch = {"tokens": tokens[0], "labels": tokens[1]}
+    base = fresh_peak()
+    model = init_params(cfg, seed, device=dev)
+    opt = init_opt(opt_cfg, model, device=dev)
+    step = EagerTrainStep(cfg, opt_cfg, model, opt, n_micro=conf["n_micro"])
+    first = float(step(batch)["loss"])
+    spans.reset()
+    prof = step_profile(lambda: step(batch))
+    variant = f"d{D}v{DV}"
+    names = ("attn.fused", "attn.chunked",
+             f"attn.launches.forward.{variant}",
+             f"attn.launches.backward.{variant}") + OPTIM_COUNTERS
+    counts = {c: spans.total(c) for c in names}
+    calls = cfg.num_layers * conf["n_micro"] * (2 if cfg.remat else 1)
+    want = {"attn.fused": calls, "attn.chunked": 0,
+            f"attn.launches.forward.{variant}": calls,
+            f"attn.launches.backward.{variant}":
+                cfg.num_layers * conf["n_micro"], **OPTIM_STEP}
+    dropped = spans.device_total("moe.dropped")
+    pairs = spans.device_total("moe.pairs")
+    moe_layers = cfg.num_layers - cfg.first_dense
+    per_token = pairs / (Bs * Ss * moe_layers)
+    if counts != want or dropped:
+        raise AssertionError(f"the DeepSeek-V2-Lite step: counters {counts}"
+                             f" (want {want}), {dropped} pairs dropped")
+    del prof["order"]
+    log(f"  DeepSeek-V2-Lite share ({cfg.param_count()} parameters), a "
+        f"profiled eager step: {counts}; {per_token:.4f} held pairs a token "
+        f"and MoE layer, {dropped} dropped; first loss {first:.4f}")
+    log(profile_line("  DeepSeek-V2-Lite eager step profile", prof))
+    step_rec = dict(counts, pairs=pairs, dropped=dropped,
+                    pairs_per_token_layer=per_token, first_loss=first,
+                    profile=prof, peak_gib=(torch.cuda.max_memory_allocated()
+                                            - base) / 2**30)
+    del step, model, opt
+    fresh_peak()
+    return {
+        "name": "attention (192, 128)",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/attention.cu",
+        "replaces": None,
+        "shape": dict(MLA_SHAPE, causal=True, scale=scale),
+        "ulps_from_plain": gaps,
+        "rms_error_kernel_plain": rms,
+        "matches_plain": True,
+        "build_s": build_s,
+        "ptxas": ptxas,
+        "calls": times,
+        "bound_ratio": ratios,
+        "bound_by": "operations",
+        "step": step_rec,
+    }
 
 
 def attention_main_path(rec: dict, gates: dict) -> None:
@@ -3582,6 +3742,9 @@ def main(argv=None) -> int:
                                  for c in OPTIM_COUNTERS}
     kernels.append(adamw)
     kernels.append(gather_phase(args.seed, moe_rec["step"]))
+    log("the DeepSeek-V2-Lite share's attention (MLA):")
+    kernels.append(mla_phase(args.seed, root))
+    kernels[-1]["card"] = card
     results["train"] = dict(serve=serve_rec, train=train_rec, moe=moe_rec)
     results["train_s"] = time.perf_counter() - t0
     log(f"serving and training: {results['train_s']:.1f} s")

@@ -1,7 +1,8 @@
 // Fused causal (or full) self-attention, forward and backward, for Hopper
 // (built with -gencode arch=compute_90a,code=sm_90a into one library for
-// each head dimension and causal flag, -DATTN_HEAD_DIM=64|128
-// -DATTN_CAUSAL=0|1).
+// each variant and causal flag: -DATTN_HEAD_DIM=64|128 with v as wide as
+// q and k, or -DATTN_HEAD_DIM=192 -DATTN_V_DIM=128 for multi-head latent
+// attention (q and k 192 wide, v and the output 128); -DATTN_CAUSAL=0|1).
 //
 // Replaces no TPU kernel: the reference computes attention with XLA
 // (`repro.models.layers.chunked_attention`, jitted).  The port ran the same
@@ -21,8 +22,9 @@
 // no operand is rounded to fewer bits than that graph rounds it):
 //   * S = Q K^T from bf16 q, k on bf16 mma.sync with fp32 accumulation (the
 //     plain version's TF32 product of bf16 values, which TF32 holds
-//     exactly), then s * scale in fp32; masked scores are -1e30 (its
-//     `_MASK`), keys past the sequence are excluded;
+//     exactly), then s * scale in fp32 (the caller's scale, as an fp32
+//     value; 1/sqrt(D) where the plain version is given none); masked
+//     scores are -1e30 (its `_MASK`), keys past the sequence are excluded;
 //   * the running max, exp, the running sum and the final division stay
 //     in fp32 (expf, IEEE division); p is rounded to bf16 (RNE) for the
 //     value product, which runs on bf16 mma.sync with fp32 accumulation;
@@ -54,6 +56,12 @@
 //     tile runs past the sequence (rows past it are zero-filled and never
 //     stored).
 //   * GQA: query head h reads KV head h / G.
+//   * Two widths: D (q, k; the products over keys' features: QK^T, dK,
+//     dQ) and DV (v, the output, dO; the products over values' features:
+//     PV, dP, dV).  Each product runs at its own width, none padded.  At
+//     D = 192 the dQ kernel reads its Q fragments from shared memory at
+//     each key tile instead of keeping them in registers, which its
+//     192-wide dQ accumulators fill.
 //   * Forward (`attn_fwd`): a block owns a query tile of one (batch, head);
 //     Q fragments stay in registers, K / V tiles stream through a double
 //     buffer of cp.async; the running max, sum and accumulator stay in
@@ -84,7 +92,10 @@
 #include <stdint.h>
 
 #ifndef ATTN_HEAD_DIM
-#error "build with -DATTN_HEAD_DIM=64 or 128"
+#error "build with -DATTN_HEAD_DIM=64, 128 or 192"
+#endif
+#ifndef ATTN_V_DIM
+#define ATTN_V_DIM ATTN_HEAD_DIM
 #endif
 #ifndef ATTN_CAUSAL
 #error "build with -DATTN_CAUSAL=0 or 1"
@@ -94,23 +105,29 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int D = ATTN_HEAD_DIM;
+constexpr int D = ATTN_HEAD_DIM;    // q and k
+constexpr int DV = ATTN_V_DIM;      // v, the output and its gradient
 constexpr bool CAUSAL = ATTN_CAUSAL != 0;
-static_assert(D == 64 || D == 128, "head dimension 64 or 128");
+static_assert(((D == 64 || D == 128) && DV == D) || (D == 192 && DV == 128),
+              "head dimensions 64 or 128, or 192 with v at 128");
+constexpr bool Q_IN_REGS = D <= 128;  // attn_bwd_q's Q fragments
 constexpr int TILE = 64;            // rows of a query or key tile
 constexpr int WARPS = 4;            // 16 rows a warp
 constexpr int THREADS = 32 * WARPS;
 constexpr int HALF = 32;            // query columns per step of attn_bwd_kv
-constexpr int LDB = D + 8;          // bf16 row stride in shared memory
-constexpr int LDA = D + 4;          // fp32 dO' rows in attn_bwd_kv
-constexpr int LDQ = D + 8;          // fp32 dO' rows in attn_bwd_q
+constexpr int LDB = D + 8;          // bf16 q and k row stride in shared memory
+constexpr int LDV = DV + 8;         // bf16 v rows
+constexpr int LDA = DV + 4;         // fp32 dO' rows in attn_bwd_kv
+constexpr int LDQ = DV + 8;         // fp32 dO' rows in attn_bwd_q
 constexpr int PREP_WARPS = 8;
 constexpr float MASK = -1e30f;      // the plain version's _MASK
 constexpr float MIN_SUM = 1e-30f;   // its clamp of the sum
 
-constexpr int FWD_SMEM = 5 * TILE * LDB * 2 + 2 * TILE * 4;
-constexpr int KV_SMEM = 3 * TILE * LDB * 2 + TILE * LDA * 4 + 4 * TILE * 4;
-constexpr int Q_SMEM = 3 * TILE * LDB * 2 + TILE * LDQ * 4 + TILE * 4;
+constexpr int FWD_SMEM = 3 * TILE * LDB * 2 + 2 * TILE * LDV * 2 + 2 * TILE * 4;
+constexpr int KV_SMEM = 2 * TILE * LDB * 2 + TILE * LDV * 2 + TILE * LDA * 4 +
+                        4 * TILE * 4;
+constexpr int Q_SMEM = 2 * TILE * LDB * 2 + TILE * LDV * 2 + TILE * LDQ * 4 +
+                       TILE * 4;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -203,26 +220,29 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// 64 rows of D bf16 values (row stride `stride` elements) starting at row
-// `row0`, into shared memory; rows at or past S are zero-filled
+// 64 rows of W bf16 values (row stride `stride` elements) starting at row
+// `row0`, into shared memory rows of LD; rows at or past S are zero-filled
+template <int W, int LD>
 __device__ __forceinline__ void load_bf16(bf16* dst, const bf16* src,
                                           size_t stride, int row0, int S,
                                           int tid) {
-  constexpr int CH = D / 8;
+  constexpr int CH = W / 8;
+  static_assert(TILE * CH % THREADS == 0, "whole copies a thread");
 #pragma unroll
   for (int it = 0; it < TILE * CH / THREADS; ++it) {
     const int x = tid + it * THREADS;
     const int r = x / CH, c = x % CH, row = row0 + r;
     const bool ok = row < S;
-    cp16(dst + r * LDB + c * 8, src + (ok ? row : 0) * stride + c * 8, ok);
+    cp16(dst + r * LD + c * 8, src + (ok ? row : 0) * stride + c * 8, ok);
   }
 }
 
+// 64 rows of DV fp32 values (dO'), as load_bf16
 template <int LD>
 __device__ __forceinline__ void load_f32(float* dst, const float* src,
                                          size_t stride, int row0, int S,
                                          int tid) {
-  constexpr int CH = D / 4;
+  constexpr int CH = DV / 4;
 #pragma unroll
   for (int it = 0; it < TILE * CH / THREADS; ++it) {
     const int x = tid + it * THREADS;
@@ -248,18 +268,18 @@ __device__ __forceinline__ void load_rows4(void* dst, const void* src,
 struct Args {
   const bf16* q;       // (B, S, H, D)
   const bf16* k;       // (B, S, KV, D)
-  const bf16* v;
+  const bf16* v;       // (B, S, KV, DV)
   const int* pos;      // (S,)
   const int* bounds;   // (ntiles, 2): smallest and largest position
-  bf16* o;             // (B, S, H, D)
-  float* o32;          // (B, S, H, D), or null
+  bf16* o;             // (B, S, H, DV)
+  float* o32;          // (B, S, H, DV), or null
   float2* stats;       // (B, H, S): the row's max and sum
-  const bf16* dout;    // (B, S, H, D)
-  float* dout32;       // (B, S, H, D): g / l in TF32
+  const bf16* dout;    // (B, S, H, DV)
+  float* dout32;       // (B, S, H, DV): g / l in TF32
   float* dl;           // (B, H, S)
-  bf16* dq;
-  bf16* dk;
-  bf16* dv;
+  bf16* dq;            // as q
+  bf16* dk;            // as k
+  bf16* dv;            // as v
   int B, S, H, KV;
   float scale;
 };
@@ -293,7 +313,7 @@ __global__ void __launch_bounds__(THREADS) attn_fwd(const Args p) {
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* Ks = Qs + TILE * LDB;          // 2 buffers
   bf16* Vs = Ks + 2 * TILE * LDB;      // 2 buffers
-  int* kps = reinterpret_cast<int*>(Vs + 2 * TILE * LDB);   // 2 buffers
+  int* kps = reinterpret_cast<int*>(Vs + 2 * TILE * LDV);   // 2 buffers
   int* bnd = kps + 2 * TILE;
   const int S = p.S, ntiles = (S + TILE - 1) / TILE;
   const int i = CAUSAL ? ntiles - 1 - (int)blockIdx.x : (int)blockIdx.x;
@@ -301,12 +321,13 @@ __global__ void __launch_bounds__(THREADS) attn_fwd(const Args p) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const size_t qstride = (size_t)p.H * D, kvstride = (size_t)p.KV * D;
+  const size_t vstride = (size_t)p.KV * DV, ostride = (size_t)p.H * DV;
   const bf16* qb = p.q + (size_t)b * S * qstride + (size_t)h * D;
   const bf16* kb = p.k + (size_t)b * S * kvstride + (size_t)kvh * D;
-  const bf16* vb = p.v + (size_t)b * S * kvstride + (size_t)kvh * D;
+  const bf16* vb = p.v + (size_t)b * S * vstride + (size_t)kvh * DV;
 
   for (int x = tid; x < 2 * ntiles; x += THREADS) bnd[x] = p.bounds[x];
-  load_bf16(Qs, qb, qstride, i * TILE, S, tid);
+  load_bf16<D, LDB>(Qs, qb, qstride, i * TILE, S, tid);
   cp_commit();
   __syncthreads();
   const int qmin = bnd[2 * i], qmax = bnd[2 * i + 1];
@@ -315,8 +336,8 @@ __global__ void __launch_bounds__(THREADS) attn_fwd(const Args p) {
     return j;
   };
   auto load_kv = [&](int j, int buf) {
-    load_bf16(Ks + buf * TILE * LDB, kb, kvstride, j * TILE, S, tid);
-    load_bf16(Vs + buf * TILE * LDB, vb, kvstride, j * TILE, S, tid);
+    load_bf16<D, LDB>(Ks + buf * TILE * LDB, kb, kvstride, j * TILE, S, tid);
+    load_bf16<DV, LDV>(Vs + buf * TILE * LDV, vb, vstride, j * TILE, S, tid);
     load_rows4(kps + buf * TILE, p.pos, 1, j * TILE, S, tid);
   };
   int j = next(0);
@@ -333,9 +354,9 @@ __global__ void __launch_bounds__(THREADS) attn_fwd(const Args p) {
     ldsm4(qf[kk], Qs + (warp * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) * LDB +
                       kk * 16 + 8 * (lane >> 4));
 
-  float o[D / 8][4];
+  float o[DV / 8][4];
 #pragma unroll
-  for (int d = 0; d < D / 8; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
+  for (int d = 0; d < DV / 8; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
   float m0 = MASK, m1 = MASK, l0 = 0.f, l1 = 0.f;
   int buf = 0;
   while (j < ntiles) {
@@ -345,7 +366,7 @@ __global__ void __launch_bounds__(THREADS) attn_fwd(const Args p) {
     cp_wait<1>();
     __syncthreads();
     const bf16* Kt = Ks + buf * TILE * LDB;
-    const bf16* Vt = Vs + buf * TILE * LDB;
+    const bf16* Vt = Vs + buf * TILE * LDV;
     const int* kp = kps + buf * TILE;
 
     float s[8][4];
@@ -404,7 +425,7 @@ __global__ void __launch_bounds__(THREADS) attn_fwd(const Args p) {
     l0 = __fmul_rn(l0, c0) + ps0;
     l1 = __fmul_rn(l1, c1) + ps1;
 #pragma unroll
-    for (int d = 0; d < D / 8; ++d) {
+    for (int d = 0; d < DV / 8; ++d) {
       o[d][0] *= c0;
       o[d][1] *= c0;
       o[d][2] *= c1;
@@ -413,9 +434,9 @@ __global__ void __launch_bounds__(THREADS) attn_fwd(const Args p) {
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
+      for (int dp = 0; dp < DV / 16; ++dp) {
         uint32_t bv[4];
-        ldsm4t(bv, Vt + (kk * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) * LDB +
+        ldsm4t(bv, Vt + (kk * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) * LDV +
                        dp * 16 + 8 * (lane >> 4));
         mma_bf16(o[2 * dp], pa[kk], bv[0], bv[1]);
         mma_bf16(o[2 * dp + 1], pa[kk], bv[2], bv[3]);
@@ -430,10 +451,10 @@ __global__ void __launch_bounds__(THREADS) attn_fwd(const Args p) {
   l0 = quad_sum(l0);
   l1 = quad_sum(l1);
   const float d0 = fmaxf(l0, MIN_SUM), d1 = fmaxf(l1, MIN_SUM);
-  const size_t row0 = ((size_t)b * S + r0) * qstride + (size_t)h * D + 2 * t;
-  const size_t row1 = row0 + 8 * qstride;
+  const size_t row0 = ((size_t)b * S + r0) * ostride + (size_t)h * DV + 2 * t;
+  const size_t row1 = row0 + 8 * ostride;
 #pragma unroll
-  for (int d = 0; d < D / 8; ++d) {
+  for (int d = 0; d < DV / 8; ++d) {
     const float a0 = o[d][0] / d0, a1 = o[d][1] / d0;
     const float b0 = o[d][2] / d1, b1 = o[d][3] / d1;
     if (r0 < S) {
@@ -464,8 +485,8 @@ __global__ void __launch_bounds__(32 * PREP_WARPS) attn_bwd_prep(const Args p) {
   const int s = (int)(bs % p.S), b = (int)(bs / p.S);
   const size_t at = ((size_t)b * p.H + h) * p.S + s;
   const float l = fmaxf(p.stats[at].y, MIN_SUM);
-  constexpr int E = D / 32;
-  const size_t base = row * D + lane * E;
+  constexpr int E = DV / 32;
+  const size_t base = row * DV + lane * E;
   float acc = 0.f;
 #pragma unroll
   for (int e = 0; e < E; ++e) {
@@ -482,7 +503,7 @@ __global__ void __launch_bounds__(THREADS) attn_bwd_kv(const Args p) {
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem);
   bf16* Vs = Ks + TILE * LDB;
-  bf16* Qs = Vs + TILE * LDB;
+  bf16* Qs = Vs + TILE * LDV;
   float* dos = reinterpret_cast<float*>(Qs + TILE * LDB);
   float* ms = dos + TILE * LDA;
   float* dls = ms + TILE;
@@ -495,12 +516,13 @@ __global__ void __launch_bounds__(THREADS) attn_bwd_kv(const Args p) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const size_t qstride = (size_t)p.H * D, kvstride = (size_t)p.KV * D;
+  const size_t vstride = (size_t)p.KV * DV, ostride = (size_t)p.H * DV;
 
   for (int x = tid; x < 2 * ntiles; x += THREADS) bnd[x] = p.bounds[x];
-  load_bf16(Ks, p.k + (size_t)b * S * kvstride + (size_t)kvh * D, kvstride,
-            j * TILE, S, tid);
-  load_bf16(Vs, p.v + (size_t)b * S * kvstride + (size_t)kvh * D, kvstride,
-            j * TILE, S, tid);
+  load_bf16<D, LDB>(Ks, p.k + (size_t)b * S * kvstride + (size_t)kvh * D,
+                    kvstride, j * TILE, S, tid);
+  load_bf16<DV, LDV>(Vs, p.v + (size_t)b * S * vstride + (size_t)kvh * DV,
+                     vstride, j * TILE, S, tid);
   load_rows4(kps, p.pos, 1, j * TILE, S, tid);
   cp_commit();
   cp_wait<0>();
@@ -509,22 +531,26 @@ __global__ void __launch_bounds__(THREADS) attn_bwd_kv(const Args p) {
   const int k0 = j * TILE + warp * 16 + g, k1 = k0 + 8;
   const int kp0 = kps[warp * 16 + g], kp1 = kps[warp * 16 + g + 8];
 
-  float dk[D / 8][4], dv[D / 8][4];
+  float dk[D / 8][4], dv[DV / 8][4];
 #pragma unroll
   for (int d = 0; d < D / 8; ++d)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk[d][e] = dv[d][e] = 0.f;
+    for (int e = 0; e < 4; ++e) dk[d][e] = 0.f;
+#pragma unroll
+  for (int d = 0; d < DV / 8; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dv[d][e] = 0.f;
 
   for (int gi = 0; gi < G; ++gi) {
     const int h = kvh * G + gi;
     const bf16* qb = p.q + (size_t)b * S * qstride + (size_t)h * D;
-    const float* db = p.dout32 + (size_t)b * S * qstride + (size_t)h * D;
+    const float* db = p.dout32 + (size_t)b * S * ostride + (size_t)h * DV;
     const float2* st = p.stats + ((size_t)b * p.H + h) * S;
     const float* dlb = p.dl + ((size_t)b * p.H + h) * S;
     for (int i = 0; i < ntiles; ++i) {
       if (CAUSAL && kmin > bnd[2 * i + 1]) continue;
-      load_bf16(Qs, qb, qstride, i * TILE, S, tid);
-      load_f32<LDA>(dos, db, qstride, i * TILE, S, tid);
+      load_bf16<D, LDB>(Qs, qb, qstride, i * TILE, S, tid);
+      load_f32<LDA>(dos, db, ostride, i * TILE, S, tid);
       load_rows4(ms, st, 2, i * TILE, S, tid);
       load_rows4(dls, dlb, 1, i * TILE, S, tid);
       load_rows4(qps, p.pos, 1, i * TILE, S, tid);
@@ -578,9 +604,9 @@ __global__ void __launch_bounds__(THREADS) attn_bwd_kv(const Args p) {
         for (int n = 0; n < 4; ++n)
           dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
 #pragma unroll
-        for (int s8 = 0; s8 < D / 8; ++s8) {
-          const bf16* v0 = Vs + (warp * 16 + g) * LDB + s8 * 8 + t;
-          const bf16* v1 = v0 + 8 * LDB;
+        for (int s8 = 0; s8 < DV / 8; ++s8) {
+          const bf16* v0 = Vs + (warp * 16 + g) * LDV + s8 * 8 + t;
+          const bf16* v1 = v0 + 8 * LDV;
           const uint32_t a0 = bits(v0[0]), a1 = bits(v1[0]);
           const uint32_t a2 = bits(v0[4]), a3 = bits(v1[4]);
 #pragma unroll
@@ -600,7 +626,7 @@ __global__ void __launch_bounds__(THREADS) attn_bwd_kv(const Args p) {
           const float* d0r = dos + (qh + n * 8 + 2 * t) * LDA + g;
           const float* d1r = d0r + LDA;
 #pragma unroll
-          for (int d = 0; d < D / 8; ++d)
+          for (int d = 0; d < DV / 8; ++d)
             mma_tf32(dv[d], a0, a1, a2, a3, __float_as_uint(d0r[d * 8]),
                      __float_as_uint(d1r[d * 8]));
         }
@@ -632,19 +658,24 @@ __global__ void __launch_bounds__(THREADS) attn_bwd_kv(const Args p) {
   }
   const size_t row0 = ((size_t)b * S + k0) * kvstride + (size_t)kvh * D + 2 * t;
   const size_t row1 = row0 + 8 * kvstride;
+  const size_t vrow0 =
+      ((size_t)b * S + k0) * vstride + (size_t)kvh * DV + 2 * t;
+  const size_t vrow1 = vrow0 + 8 * vstride;
 #pragma unroll
   for (int d = 0; d < D / 8; ++d) {
     if (k0 < S) {
       *reinterpret_cast<uint32_t*>(p.dk + row0 + d * 8) =
           pack_bf16(dk[d][0], dk[d][1]);
-      *reinterpret_cast<uint32_t*>(p.dv + row0 + d * 8) =
-          pack_bf16(dv[d][0], dv[d][1]);
+      if (d < DV / 8)
+        *reinterpret_cast<uint32_t*>(p.dv + vrow0 + d * 8) =
+            pack_bf16(dv[d][0], dv[d][1]);
     }
     if (k1 < S) {
       *reinterpret_cast<uint32_t*>(p.dk + row1 + d * 8) =
           pack_bf16(dk[d][2], dk[d][3]);
-      *reinterpret_cast<uint32_t*>(p.dv + row1 + d * 8) =
-          pack_bf16(dv[d][2], dv[d][3]);
+      if (d < DV / 8)
+        *reinterpret_cast<uint32_t*>(p.dv + vrow1 + d * 8) =
+            pack_bf16(dv[d][2], dv[d][3]);
     }
   }
 }
@@ -654,7 +685,7 @@ __global__ void __launch_bounds__(THREADS) attn_bwd_q(const Args p) {
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* Ks = Qs + TILE * LDB;
   bf16* Vs = Ks + TILE * LDB;
-  float* dos = reinterpret_cast<float*>(Vs + TILE * LDB);
+  float* dos = reinterpret_cast<float*>(Vs + TILE * LDV);
   int* kps = reinterpret_cast<int*>(dos + TILE * LDQ);
   int* bnd = kps + TILE;
   const int S = p.S, ntiles = (S + TILE - 1) / TILE;
@@ -663,14 +694,15 @@ __global__ void __launch_bounds__(THREADS) attn_bwd_q(const Args p) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const size_t qstride = (size_t)p.H * D, kvstride = (size_t)p.KV * D;
+  const size_t vstride = (size_t)p.KV * DV, ostride = (size_t)p.H * DV;
   const bf16* kb = p.k + (size_t)b * S * kvstride + (size_t)kvh * D;
-  const bf16* vb = p.v + (size_t)b * S * kvstride + (size_t)kvh * D;
+  const bf16* vb = p.v + (size_t)b * S * vstride + (size_t)kvh * DV;
 
   for (int x = tid; x < 2 * ntiles; x += THREADS) bnd[x] = p.bounds[x];
-  load_bf16(Qs, p.q + (size_t)b * S * qstride + (size_t)h * D, qstride,
-            i * TILE, S, tid);
-  load_f32<LDQ>(dos, p.dout32 + (size_t)b * S * qstride + (size_t)h * D,
-                qstride, i * TILE, S, tid);
+  load_bf16<D, LDB>(Qs, p.q + (size_t)b * S * qstride + (size_t)h * D,
+                    qstride, i * TILE, S, tid);
+  load_f32<LDQ>(dos, p.dout32 + (size_t)b * S * ostride + (size_t)h * DV,
+                ostride, i * TILE, S, tid);
   cp_commit();
   const int r0 = i * TILE + warp * 16 + g, r1 = r0 + 8;
   const size_t sh = ((size_t)b * p.H + h) * S;
@@ -682,11 +714,14 @@ __global__ void __launch_bounds__(THREADS) attn_bwd_q(const Args p) {
   cp_wait<0>();
   __syncthreads();
   const int qmin = bnd[2 * i], qmax = bnd[2 * i + 1];
-  uint32_t qf[D / 16][4];
+  const bf16* qrow =
+      Qs + (warp * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) * LDB +
+      8 * (lane >> 4);
+  uint32_t qf[Q_IN_REGS ? D / 16 : 1][4];
+  if constexpr (Q_IN_REGS) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    ldsm4(qf[kk], Qs + (warp * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) * LDB +
-                      kk * 16 + 8 * (lane >> 4));
+    for (int kk = 0; kk < D / 16; ++kk) ldsm4(qf[kk], qrow + kk * 16);
+  }
   const float* do0 = dos + (warp * 16 + g) * LDQ + 2 * t;
   const float* do1 = do0 + 8 * LDQ;
 
@@ -696,8 +731,8 @@ __global__ void __launch_bounds__(THREADS) attn_bwd_q(const Args p) {
 
   for (int j = 0; j < ntiles; ++j) {
     if (CAUSAL && bnd[2 * j] > qmax) continue;
-    load_bf16(Ks, kb, kvstride, j * TILE, S, tid);
-    load_bf16(Vs, vb, kvstride, j * TILE, S, tid);
+    load_bf16<D, LDB>(Ks, kb, kvstride, j * TILE, S, tid);
+    load_bf16<DV, LDV>(Vs, vb, vstride, j * TILE, S, tid);
     load_rows4(kps, p.pos, 1, j * TILE, S, tid);
     cp_commit();
     cp_wait<0>();
@@ -708,13 +743,19 @@ __global__ void __launch_bounds__(THREADS) attn_bwd_q(const Args p) {
     for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t qs[4];
+      const uint32_t* qa = qs;
+      if constexpr (Q_IN_REGS)
+        qa = qf[kk];
+      else
+        ldsm4(qs, qrow + kk * 16);
 #pragma unroll
       for (int np = 0; np < 4; ++np) {
         uint32_t bk[4];
         ldsm4(bk, Ks + (np * 16 + (lane & 7) + 8 * (lane >> 4)) * LDB +
                       kk * 16 + 8 * ((lane >> 3) & 1));
-        mma_bf16(s[2 * np], qf[kk], bk[0], bk[1]);
-        mma_bf16(s[2 * np + 1], qf[kk], bk[2], bk[3]);
+        mma_bf16(s[2 * np], qa, bk[0], bk[1]);
+        mma_bf16(s[2 * np + 1], qa, bk[2], bk[3]);
       }
     }
     // P = exp(s * scale - m), zero where masked
@@ -740,13 +781,13 @@ __global__ void __launch_bounds__(THREADS) attn_bwd_q(const Args p) {
 #pragma unroll
     for (int n = 0; n < 8; ++n) dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
 #pragma unroll
-    for (int s8 = 0; s8 < D / 8; ++s8) {
+    for (int s8 = 0; s8 < DV / 8; ++s8) {
       const float2 x0 = *reinterpret_cast<const float2*>(do0 + s8 * 8);
       const float2 x1 = *reinterpret_cast<const float2*>(do1 + s8 * 8);
 #pragma unroll
       for (int n = 0; n < 8; ++n) {
         const uint32_t vv = *reinterpret_cast<const uint32_t*>(
-            Vs + (n * 8 + g) * LDB + s8 * 8 + 2 * t);
+            Vs + (n * 8 + g) * LDV + s8 * 8 + 2 * t);
         mma_tf32(dp[n], __float_as_uint(x0.x), __float_as_uint(x1.x),
                  __float_as_uint(x0.y), __float_as_uint(x1.y), vv << 16,
                  vv & 0xffff0000u);
@@ -785,13 +826,13 @@ int set_smem(const void* kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-Args make_args(int B, int S, int H, int KV) {
+Args make_args(int B, int S, int H, int KV, float scale) {
   Args a = {};
   a.B = B;
   a.S = S;
   a.H = H;
   a.KV = KV;
-  a.scale = (float)(1.0 / sqrt((double)D));   // the plain version's scale
+  a.scale = scale;
   return a;
 }
 
@@ -799,8 +840,8 @@ Args backward_args(const void* q, const void* k, const void* v,
                    const int* pos, const int* bounds, const float* o32,
                    const float* stats, const void* dout, float* dout32,
                    float* dl, void* dq, void* dk, void* dv, int B, int S,
-                   int H, int KV) {
-  Args a = make_args(B, S, H, KV);
+                   int H, int KV, float scale) {
+  Args a = make_args(B, S, H, KV, scale);
   a.q = static_cast<const bf16*>(q);
   a.k = static_cast<const bf16*>(k);
   a.v = static_cast<const bf16*>(v);
@@ -821,25 +862,28 @@ Args backward_args(const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// TILE, head dimension, causal flag and threads a block, for the wrapper
-// to check against its own
+// TILE, head dimension, causal flag and threads a block, and v's width
+// where it is not the head dimension's, for the wrapper to check against
+// its own
 void attn_geometry(int* out) {
   out[0] = TILE;
   out[1] = D;
   out[2] = CAUSAL ? 1 : 0;
   out[3] = THREADS;
+  if (DV != D) out[4] = DV;
 }
 
 const char* attn_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// o (and o32 unless null), stats and bounds from q, k, v and positions
+// o (and o32 unless null), stats and bounds from q, k, v and positions,
+// the scores scaled by `scale`
 int attn_forward(const void* q, const void* k, const void* v, const int* pos,
                  int* bounds, void* o, float* o32, float* stats, int B, int S,
-                 int H, int KV, void* stream) {
+                 int H, int KV, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  Args a = make_args(B, S, H, KV);
+  Args a = make_args(B, S, H, KV, scale);
   a.q = static_cast<const bf16*>(q);
   a.k = static_cast<const bf16*>(k);
   a.v = static_cast<const bf16*>(v);
@@ -861,16 +905,16 @@ int attn_forward(const void* q, const void* k, const void* v, const int* pos,
 }
 
 // dq, dk and dv from the forward's inputs and records and dout, through
-// the scratch dout32 (the size of q, fp32) and dl (B * H * S fp32): the
+// the scratch dout32 (the size of the output, fp32) and dl (B * H * S fp32): the
 // prep (dout32, dl), then dK and dV, then dQ, on the same stream
 int attn_backward(const void* q, const void* k, const void* v, const int* pos,
                   const int* bounds, const float* o32, const float* stats,
                   const void* dout, float* dout32, float* dl, void* dq,
                   void* dk, void* dv, int B, int S, int H, int KV,
-                  void* stream) {
+                  float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Args a = backward_args(q, k, v, pos, bounds, o32, stats, dout, dout32,
-                               dl, dq, dk, dv, B, S, H, KV);
+                               dl, dq, dk, dv, B, S, H, KV, scale);
   const int ntiles = (S + TILE - 1) / TILE;
   const int kv_smem = KV_SMEM + 8 * ntiles, q_smem = Q_SMEM + 8 * ntiles;
   int err = set_smem((const void*)attn_bwd_kv, kv_smem);

@@ -81,20 +81,23 @@ GATHER_GG_RTOL = 2.0 ** -17
 
 def attention_operands(B: int, S: int, H: int, KV: int, D: int, *,
                        seed: int, device, shuffled: bool = False,
-                       qk_norm: bool = False):
-    """bf16 q (B, S, H, D), k and v (B, S, KV, D) and an upstream gradient,
-    drawn on the CPU from ``seed`` and moved to ``device``, and int32
-    positions: 0..S-1, or shuffled.  With ``qk_norm``, q and k are as
-    OLMoE's attention makes them: through a weighted RMSNorm over all
-    heads' features (scales 1 + 0.1 N(0, 1), eps 1e-5), then RoPE (theta
+                       qk_norm: bool = False, v_dim: int = None):
+    """bf16 q (B, S, H, D), k (B, S, KV, D), v (B, S, KV, ``v_dim``, D
+    unless given) and an upstream gradient (B, S, H, ``v_dim``), drawn on
+    the CPU from ``seed`` and moved to ``device``, and int32 positions:
+    0..S-1, or shuffled.  With ``qk_norm``, q and k are as OLMoE's
+    attention makes them: through a weighted RMSNorm over all heads'
+    features (scales 1 + 0.1 N(0, 1), eps 1e-5), then RoPE (theta
     10,000)."""
     gen = torch.Generator().manual_seed(seed)
+    DV = D if v_dim is None else v_dim
 
     def normal(shape):
         return torch.randn(shape, generator=gen, dtype=F32).to(BF).to(device)
 
-    q, k, v = (normal((B, S, heads, D)) for heads in (H, KV, KV))
-    g = normal((B, S, H, D))
+    q, k, v = (normal((B, S, heads, width))
+               for heads, width in ((H, D), (KV, D), (KV, DV)))
+    g = normal((B, S, H, DV))
     pos = (torch.randperm(S, generator=gen) if shuffled
            else torch.arange(S)).to(device, torch.int32)
     if qk_norm:
@@ -113,22 +116,26 @@ def attention_grads(fn: Callable, q, k, v, g) -> List[torch.Tensor]:
     return [out.detach(), qs.grad, ks.grad, vs.grad]
 
 
-def dense_attention64(q, k, v, pos, causal: bool) -> torch.Tensor:
-    """Dense attention (GQA by repeating KV heads) in the operands' dtype:
+def dense_attention64(q, k, v, pos, causal: bool, scale: float = None
+                      ) -> torch.Tensor:
+    """Dense attention (GQA by repeating KV heads) in the operands' dtype,
+    the scores scaled by ``scale`` (1/sqrt of q's width unless given):
     fp64 for the gates' exact reading."""
     G = q.shape[2] // k.shape[2]
     kd = k.repeat_interleave(G, dim=2)
     vd = v.repeat_interleave(G, dim=2)
-    s = torch.einsum("bqhd,bkhd->bhqk", q, kd) / math.sqrt(q.shape[-1])
+    s = torch.einsum("bqhd,bkhd->bhqk", q, kd)
+    s = s / math.sqrt(q.shape[-1]) if scale is None else s * scale
     if causal:
         s = s.masked_fill(~(pos[:, None] >= pos[None, :]), -math.inf)
     return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), vd)
 
 
-def exact_attention(q, k, v, g, pos, causal: bool) -> List[torch.Tensor]:
+def exact_attention(q, k, v, g, pos, causal: bool, scale: float = None
+                    ) -> List[torch.Tensor]:
     """out, dq, dk, dv of the fp64 dense attention of the operands."""
     return attention_grads(
-        lambda a, b, c: dense_attention64(a, b, c, pos.long(), causal),
+        lambda a, b, c: dense_attention64(a, b, c, pos.long(), causal, scale),
         q.double(), k.double(), v.double(), g.double())
 
 
@@ -159,20 +166,24 @@ def hold_attention(got, want, exact, label: str = ""
     return gaps, rms
 
 
-def attention_against_plain(q, k, v, g, pos, causal: bool, label: str = ""
+def attention_against_plain(q, k, v, g, pos, causal: bool, label: str = "",
+                            scale: float = None
                             ) -> Tuple[Dict[str, float],
                                        Dict[str, List[float]]]:
     """The fused kernel against ``chunked_attention`` on the card, on the
-    same operands, by ``hold_attention``'s gates; one forward and one
-    backward launch.  Returns ``hold_attention``'s readings."""
+    same operands (v may be narrower than q and k) and ``scale`` (each
+    side's default unless given), by ``hold_attention``'s gates; one
+    forward and one backward launch.  Returns ``hold_attention``'s
+    readings."""
     launches = [spans.total(f"attn.launches.{x}")
                 for x in ("forward", "backward")]
     fused = attention_grads(
-        lambda a, b, c: kattn.fused_attention(a, b, c, pos, causal=causal),
+        lambda a, b, c: kattn.fused_attention(a, b, c, pos, causal=causal,
+                                              scale=scale),
         q, k, v, g)
     plain = attention_grads(lambda a, b, c: layers.chunked_attention(
         a, b, c, causal=causal, q_positions=pos, kv_positions=pos,
-        q_chunk=1024, kv_chunk=2048), q, k, v, g)
+        q_chunk=1024, kv_chunk=2048, scale=scale), q, k, v, g)
     torch.cuda.synchronize()
     counted = [spans.total(f"attn.launches.{x}") - n
                for x, n in zip(("forward", "backward"), launches)]
@@ -180,7 +191,7 @@ def attention_against_plain(q, k, v, g, pos, causal: bool, label: str = ""
         raise AssertionError(f"{label}: {counted} forward and backward "
                              "launches, not one of each")
     readings = hold_attention(fused, plain,
-                              exact_attention(q, k, v, g, pos, causal),
+                              exact_attention(q, k, v, g, pos, causal, scale),
                               f"kernel against chunked_attention {label}")
     del fused, plain
     torch.cuda.empty_cache()

@@ -11,6 +11,7 @@ mesh.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple
 
 
@@ -208,6 +209,98 @@ class MoEShareConfig(ModelConfig):
         qk = (self.num_heads + self.num_kv_heads) * self.head_dim
         return super().param_count() + self.num_layers * (
             self.d_model * (self.router_experts - self.num_experts) + qk)
+
+
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's attention temperature factor (``yarn_get_mscale`` of
+    DeepSeek-V2's modeling code): 1 + 0.1 mscale ln(factor), 1 at a factor
+    of 1 or less."""
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAShareConfig(MoEShareConfig):
+    """A share of DeepSeek-V2's model (arXiv:2405.04434 §2.1-2.2; V2-Lite's
+    config): multi-head latent attention (MLA) without query compression,
+    a leading dense SwiGLU, then DeepSeekMoE layers of which this device
+    holds a share of the routed experts, beside the shared experts.
+
+    Beside :class:`MoEShareConfig`'s fields (``head_dim`` is q's and k's
+    width, ``qk_nope_head_dim + qk_rope_head_dim``; ``d_ff`` an expert's
+    width; ``num_kv_heads`` the heads' count, MLA has no grouping):
+      * MLA (``models.mla.MLAttention``): q = x W_Q (heads of
+        ``qk_nope_head_dim`` + ``qk_rope_head_dim``); [c; k_R] = x W_KVa
+        (``kv_lora_rank`` + ``qk_rope_head_dim``), c through its own
+        RMSNorm; [k_C; v] = c W_KVb (heads of ``qk_nope_head_dim`` +
+        ``v_head_dim``); RoPE on q's and k_R's rope parts only, the one
+        k_R shared by every head; the scores scaled by ``softmax_scale``;
+      * RoPE under YaRN: theta ``rope_theta``, ``rope_factor``,
+        ``rope_original`` positions, ``beta_fast``, ``beta_slow``,
+        ``mscale``, ``mscale_all_dim`` (``models.mla.yarn_inv_freq``);
+        the rotation pairs are the interleaved (2i, 2i + 1);
+      * the first ``first_dense`` layers' FFN a SwiGLU of width
+        ``dense_d_ff``; every later layer DeepSeekMoE: the routed share
+        (:class:`MoEShareConfig`'s gating, no renormalisation) plus
+        ``shared_experts`` shared experts, one SwiGLU of width
+        ``shared_experts * d_ff`` run for every token;
+      * the loss: the cross entropy plus ``lb_weight`` times the
+        sequence-wise expert balance loss, summed over the MoE layers
+        (``models.moe.sequence_balance_loss``); no z-loss
+        (``z_weight`` 0); no QK-norm.
+    """
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    shared_experts: int = 2
+    first_dense: int = 1
+    dense_d_ff: int = 10944
+    rope_factor: float = 40.0
+    rope_original: int = 4096
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 0.707
+    mscale_all_dim: float = 0.707
+    norm_eps: float = 1e-6
+    lb_weight: float = 0.001
+    z_weight: float = 0.0
+    qk_norm = False
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.head_dim != self.qk_nope_head_dim + self.qk_rope_head_dim:
+            raise ValueError("head_dim is q's and k's width, "
+                             "qk_nope_head_dim + qk_rope_head_dim")
+        if self.num_kv_heads != self.num_heads or self.qk_rope_head_dim % 2:
+            raise ValueError("MLA keeps one k and v a head, and rotates "
+                             "pairs")
+        if not 0 <= self.first_dense <= self.num_layers:
+            raise ValueError("first_dense past the layers")
+
+    @property
+    def softmax_scale(self) -> float:
+        """head_dim^-1/2 times YaRN's mscale(rope_factor,
+        mscale_all_dim) squared (DeepSeek-V2's attention)."""
+        m = yarn_mscale(self.rope_factor, self.mscale_all_dim)
+        return self.head_dim ** -0.5 * m * m
+
+    def param_count(self) -> int:
+        """The parameters held here: the embedding, the untied head and
+        the final norm; per layer two norms and MLA (W_Q, W_KVa, the
+        latent norm, W_KVb, W_O); the leading dense SwiGLUs; per MoE layer
+        the router at its full width, the held experts and the shared
+        ones."""
+        d, H, V = self.d_model, self.num_heads, self.vocab_size
+        r, rd = self.kv_lora_rank, self.qk_rope_head_dim
+        mla = d * H * self.head_dim + d * (r + rd) + r \
+            + r * H * (self.qk_nope_head_dim + self.v_head_dim) \
+            + H * self.v_head_dim * d
+        moe = d * self.router_experts \
+            + (self.num_experts + self.shared_experts) * 3 * d * self.d_ff
+        dense = self.first_dense
+        return 2 * V * d + d + self.num_layers * (mla + 2 * d) \
+            + dense * 3 * d * self.dense_d_ff \
+            + (self.num_layers - dense) * moe
 
 
 @dataclasses.dataclass(frozen=True)

@@ -278,11 +278,14 @@ def _heads_divide(q: DTensor, k: DTensor) -> bool:
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool, q_positions: torch.Tensor,
                       kv_positions: torch.Tensor, q_chunk: int,
-                      kv_chunk: int) -> torch.Tensor:
+                      kv_chunk: int, scale: Optional[float] = None
+                      ) -> torch.Tensor:
     """Online-softmax attention.
 
-    q: (B, Sq, H, D); k, v: (B, Skv, KV, D); H = KV * G (GQA: query head h
-    reads KV head h // G).  q_positions (Sq,) and kv_positions (Skv,) give
+    q: (B, Sq, H, D); k: (B, Skv, KV, D); v: (B, Skv, KV, Dv), the output
+    (B, Sq, H, Dv); H = KV * G (GQA: query head h reads KV head h // G).
+    The scores are scaled by ``scale``, 1/sqrt(D) unless given (an fp32
+    multiply).  q_positions (Sq,) and kv_positions (Skv,) give
     the causal mask and, at decode, the cache-validity mask (cache slots
     with a position past the query's are excluded).  Loops over query
     chunks (outer) and KV chunks (inner); scores, the running max and sum
@@ -292,11 +295,12 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """
     B, Sq, H, D = q.shape
     _, Skv, KV, _ = k.shape
+    Dv = v.shape[-1]
     G = H // KV
     qc = _divisor_chunk(q_chunk, Sq)
     kc = _divisor_chunk(kv_chunk, Skv)
     nq, nk = Sq // qc, Skv // kc
-    scale = 1.0 / math.sqrt(D)
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
     qk_dtype = torch.promote_types(q.dtype, k.dtype)
 
     # (nq, B, KV, G, qc, D): the kv-head dimension on "model", so the score
@@ -305,7 +309,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               None, BATCH, "model", None, None, None)
     kr = hint(k.reshape(B, nk, kc, KV, D).permute(1, 0, 3, 2, 4),
               None, BATCH, "model", None, None)       # (nk, B, KV, kc, D)
-    vr = hint(v.reshape(B, nk, kc, KV, D).permute(1, 0, 3, 2, 4),
+    vr = hint(v.reshape(B, nk, kc, KV, Dv).permute(1, 0, 3, 2, 4),
               None, BATCH, "model", None, None)
     qp = q_positions.reshape(nq, qc)
     kp = kv_positions.reshape(nk, kc)
@@ -313,7 +317,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     outs = []
     for i in range(nq):
         qt = qr[i].float()                      # (B, KV, G, qc, D)
-        o = torch.zeros_like(qt)
+        o = torch.zeros_like(qt if Dv == D else qt[..., :Dv])
         m = torch.full_like(qt[..., 0], _MASK)  # (B, KV, G, qc)
         l = torch.zeros_like(m)
         for j in range(nk):
@@ -333,35 +337,38 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             m = m_new
         outs.append((o / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype))
     out = hint(torch.stack(outs), None, BATCH, "model", None, None, None)
-    return out.permute(1, 0, 4, 2, 3, 5).reshape(B, Sq, H, D)
+    return out.permute(1, 0, 4, 2, 3, 5).reshape(B, Sq, H, Dv)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool, q_positions: torch.Tensor,
               kv_positions: torch.Tensor, q_chunk: int, kv_chunk: int,
-              cached: bool) -> torch.Tensor:
+              cached: bool, scale: Optional[float] = None) -> torch.Tensor:
     """``chunked_attention``'s function (same arguments; ``cached`` says k
     and v are a KV cache), on the fused kernel where
     ``fused_attention_engages`` holds for these operands (q and k share
-    their positions when ``kv_positions`` is ``q_positions``), else on
-    ``chunked_attention``.  DTensor operands run on each device's (batch,
-    kv-head) shards, on the route their local shards take."""
+    their positions when ``kv_positions`` is ``q_positions``; v's width
+    may differ from q's), else on ``chunked_attention``.  DTensor operands
+    run on each device's (batch, kv-head) shards, on the route their local
+    shards take."""
     if isinstance(q, DTensor):
         heads = "model" if _heads_divide(q, k) else None
         return batch_local(functools.partial(
             attention, causal=causal, q_positions=q_positions,
             kv_positions=kv_positions, q_chunk=q_chunk, kv_chunk=kv_chunk,
-            cached=cached), q, k, v, spec=(BATCH, None, heads, None))
+            cached=cached, scale=scale), q, k, v,
+            spec=(BATCH, None, heads, None))
     if fused_attention_engages(
             q.device, (q.dtype, k.dtype, v.dtype), q.shape[-1], q.shape[1],
             cached=cached, self_attention=kv_positions is q_positions
-            and k.shape[1] == q.shape[1]):
+            and k.shape[1] == q.shape[1], v_dim=v.shape[-1]):
         spans.count("attn.fused")
-        return fused_attention(q, k, v, q_positions, causal=causal)
+        return fused_attention(q, k, v, q_positions, causal=causal,
+                               scale=scale)
     spans.count("attn.chunked")
     return chunked_attention(q, k, v, causal=causal, q_positions=q_positions,
                              kv_positions=kv_positions, q_chunk=q_chunk,
-                             kv_chunk=kv_chunk)
+                             kv_chunk=kv_chunk, scale=scale)
 
 
 # ---------------------------------------------------------------------------

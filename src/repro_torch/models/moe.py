@@ -57,6 +57,13 @@ Spans ``moe.route``, ``moe.dispatch``, ``moe.experts``, ``moe.combine``,
 ``moe.aux``; counters ``moe.combine.fused``, ``moe.combine.plain``;
 device times ``moe`` (the layer) and ``moe.products`` (each grouped
 product, forward and backward) (``obs.spans.timed``).
+
+:class:`SharedMoEShare` is DeepSeekMoE's layer (``MLAShareConfig``,
+arXiv:2405.04434 §2.2): :class:`MoEShare`'s routed share, plus shared
+experts (one SwiGLU of ``shared_experts * d_ff``) run for every token and
+added in fp32 (span ``moe.shared``), inside the ``moe`` device time; its
+auxiliary loss is the sequence-wise expert balance loss
+(:func:`sequence_balance_loss`) and no z-loss.
 """
 from __future__ import annotations
 
@@ -72,8 +79,8 @@ from ..device import DeviceLike
 from ..distributed.hints import BATCH, batch_local, hint
 from ..kernels.grouped import grouped_product
 from ..obs import spans
-from .config import ModelConfig, MoEShareConfig
-from .layers import dt, param
+from .config import MLAShareConfig, ModelConfig, MoEShareConfig
+from .layers import MLP, dt, param
 
 
 class MoE(nn.Module):
@@ -202,6 +209,25 @@ def router_losses(logits: torch.Tensor, probs: torch.Tensor,
     lb = E * (n.float() / T * probs.mean(0)).sum()
     z = torch.logsumexp(logits, dim=-1).square().mean()
     return torch.stack([lb, z])
+
+
+def sequence_balance_loss(probs: torch.Tensor, top_ids: torch.Tensor,
+                          rows: int) -> torch.Tensor:
+    """0-d fp32: DeepSeek-V2's sequence-wise expert balance loss (``seq_aux``,
+    before its weight): the mean over the ``rows`` sequences of sum_e f_e
+    P_e, where f_e = E / (K S) times the choices of expert e among the
+    sequence's S tokens (no gradient) and P_e the mean probability of e
+    over them; ``probs`` (T, E) and ``top_ids`` (T, K) hold the sequences'
+    tokens in order, T = rows * S."""
+    T, E = probs.shape
+    K = top_ids.shape[1]
+    S = T // rows
+    n = torch.zeros((rows, E), dtype=torch.int64,
+                    device=probs.device).scatter_add_(
+        1, top_ids.reshape(rows, S * K),
+        torch.ones_like(top_ids.reshape(rows, S * K)))
+    f = n.float() / (S * K / E)
+    return (f * probs.view(rows, S, E).mean(1)).sum(1).mean()
 
 
 def share_plan(top_ids: torch.Tensor, first: int, held: int):
@@ -374,9 +400,20 @@ class MoEShare(nn.Module):
 
     def forward_stats(self, x: torch.Tensor):
         """x (B, S, d) -> (y (B, S, d) in x's dtype, the router's losses
-        (2,) fp32 (:func:`router_losses`), the counts (2,) int64 of held
+        (2,) fp32 (:meth:`aux_losses`), the counts (2,) int64 of held
         pairs computed and dropped)."""
         return spans.timed("moe", self._layer, x)
+
+    def aux_losses(self, logits: torch.Tensor, probs: torch.Tensor,
+                   top_ids: torch.Tensor, rows: int) -> torch.Tensor:
+        """(2,) fp32 auxiliary losses of the ``rows`` sequences' tokens:
+        OLMoE's (:func:`router_losses`)."""
+        return router_losses(logits, probs, top_ids)
+
+    def add_shared(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """The layer's fp32 output (T, d) from the routed share's ``y`` and
+        the layer's input ``x`` (T, d): ``y`` (no shared experts)."""
+        return y
 
     def _layer(self, x: torch.Tensor):
         cfg = self.cfg
@@ -390,7 +427,7 @@ class MoEShare(nn.Module):
                                  stable=True).indices[:, :K]
             gates = torch.gather(probs, 1, top_ids)
         with spans.span("moe.aux"):
-            aux = router_losses(logits, probs, top_ids)
+            aux = self.aux_losses(logits, probs, top_ids, B)
         with spans.span("moe.dispatch"):
             row, valid, pair, offs, counts = share_plan(
                 top_ids, cfg.expert_offset, cfg.num_experts)
@@ -403,4 +440,25 @@ class MoEShare(nn.Module):
             ye = self.experts(xs, offs)
         with spans.span("moe.combine"):
             y = _Combine.apply(ye, gates, row, valid, pair)
+        y = self.add_shared(xf, y)
         return y.view(B, S, d).to(x.dtype), aux, counts
+
+
+class SharedMoEShare(MoEShare):
+    """DeepSeekMoE's layer (``MLAShareConfig``): :class:`MoEShare`'s routed
+    share of the experts, plus ``shared`` (an ``MLP`` of width
+    ``shared_experts * d_ff``, the shared experts as one SwiGLU) over every
+    token, added to the routed part in fp32; the auxiliary losses are
+    (:func:`sequence_balance_loss`, 0)."""
+
+    def __init__(self, cfg: MLAShareConfig, device: DeviceLike = None):
+        super().__init__(cfg, device)
+        self.shared = MLP(cfg, device, d_ff=cfg.shared_experts * cfg.d_ff)
+
+    def aux_losses(self, logits, probs, top_ids, rows):
+        balance = sequence_balance_loss(probs, top_ids, rows)
+        return torch.stack([balance, torch.zeros_like(balance)])
+
+    def add_shared(self, x, y):
+        with spans.span("moe.shared"):
+            return y + self.shared(x).float()

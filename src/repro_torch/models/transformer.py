@@ -8,7 +8,12 @@ One block module per layer in a ``ModuleList``, applied in a Python loop
   * moe                 : [norm -> GQA attention] + [norm -> top-k MoE];
                           an expert share (``MoEShareConfig``): QK-norm in
                           the attention and ``moe.MoEShare``, whose router
-                          losses ``loss_terms`` adds to the cross entropy
+                          losses ``loss_terms`` adds to the cross entropy;
+                          a DeepSeek-V2 share (``MLAShareConfig``):
+                          [norm -> MLA (``mla.MLAttention``)] + [norm ->
+                          SwiGLU of ``dense_d_ff``] in the first
+                          ``first_dense`` layers, [norm -> MLA] + [norm ->
+                          ``moe.SharedMoEShare``] in the others
   * ssm                 : [norm -> Mamba2/SSD]
   * hybrid (zamba2)     : the ssm stack; after every ``shared_attn_every``
                           layers one of ``num_shared_blocks`` weight-shared
@@ -52,29 +57,34 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ..device import DeviceLike, resolve_device
 from ..distributed.hints import BATCH, hint
 from ..obs import spans
-from .config import ModelConfig, MoEShareConfig
+from .config import MLAShareConfig, ModelConfig, MoEShareConfig
 from .layers import (MLP, Attention, Embed, Norm, chunked_softmax_xent, dt,
                      logits_last, param)
-from .moe import MoE, MoEShare
+from .mla import MLAttention
+from .moe import MoE, MoEShare, SharedMoEShare
 from .ssd import SSD, apply_ssd, ssd_step
 
 Index = Union[int, torch.Tensor]
 
 
 class AttnBlock(nn.Module):
-    """[norm1 -> attention] + [norm2 -> SwiGLU, or MoE for the moe family]."""
+    """[norm1 -> attention] + [norm2 -> SwiGLU, or MoE for the moe family];
+    for ``MLAShareConfig`` MLA and DeepSeekMoE, or a SwiGLU of
+    ``dense_d_ff`` in a leading dense layer."""
 
     def __init__(self, cfg: ModelConfig, device: DeviceLike = None,
                  moe: bool = False):
         super().__init__()
+        mla = isinstance(cfg, MLAShareConfig)
         self.norm1 = Norm(cfg, device)
-        self.attn = Attention(cfg, device)
+        self.attn = (MLAttention if mla else Attention)(cfg, device)
         self.norm2 = Norm(cfg, device)
         if moe:
-            self.moe = (MoEShare if isinstance(cfg, MoEShareConfig)
-                        else MoE)(cfg, device)
+            kind = SharedMoEShare if mla else \
+                MoEShare if isinstance(cfg, MoEShareConfig) else MoE
+            self.moe = kind(cfg, device)
         else:
-            self.mlp = MLP(cfg, device)
+            self.mlp = MLP(cfg, device, cfg.dense_d_ff if mla else None)
 
     def forward(self, h, positions, cache=None, cache_index=None):
         # the residual stream's layout at the reference's seq_parallel
@@ -91,9 +101,12 @@ class AttnBlock(nn.Module):
 
     def forward_stats(self, h, positions):
         """A training forward of an expert share's block: (h, the router's
-        losses, the pair counts) (``MoEShare.forward_stats``)."""
+        losses, the pair counts) (``MoEShare.forward_stats``); a dense
+        block's losses and counts are None."""
         a_out, _ = self.attn(self.norm1(h), positions=positions)
         h = h + a_out
+        if not hasattr(self, "moe"):
+            return h + self.mlp(self.norm2(h)), None, None
         y, aux, counts = self.moe.forward_stats(self.norm2(h))
         return h + y, aux, counts
 
@@ -121,9 +134,10 @@ class Transformer(nn.Module):
         dev = resolve_device(device, allow_meta=allow_meta)
         self.cfg = cfg
         if cfg.family in ("dense", "vlm", "audio", "moe"):
+            first = getattr(cfg, "first_dense", 0)
             self.blocks = nn.ModuleList(
-                AttnBlock(cfg, dev, moe=cfg.family == "moe")
-                for _ in range(cfg.num_layers))
+                AttnBlock(cfg, dev, moe=cfg.family == "moe" and i >= first)
+                for i in range(cfg.num_layers))
         elif cfg.family in ("ssm", "hybrid"):
             self.blocks = nn.ModuleList(SSDBlock(cfg, dev)
                                         for _ in range(cfg.num_layers))
@@ -261,7 +275,7 @@ def forward_hidden(cfg: ModelConfig, model: Transformer, h: torch.Tensor, *,
       * cache buffers + cache_index    -> decode (or prefill seeding when the
         sequence is longer than one token and cache_index == 0)
     The cache is updated in place and returned.  ``stats`` (a list, for
-    an expert share's training forward) receives each block's router
+    an expert share's training forward) receives each MoE block's router
     losses and pair counts (``AttnBlock.forward_stats``)."""
     fam = cfg.family
     remat = cfg.remat and cache is None and torch.is_grad_enabled()
@@ -269,7 +283,8 @@ def forward_hidden(cfg: ModelConfig, model: Transformer, h: torch.Tensor, *,
         for blk in model.blocks:
             fn = functools.partial(blk.forward_stats, positions=positions)
             h, aux, counts = _remat(cfg, fn, h) if remat else fn(h)
-            stats.append((aux, counts))
+            if aux is not None:
+                stats.append((aux, counts))
         return h, cache
     if fam in ("dense", "moe", "vlm", "audio"):
         for i, blk in enumerate(model.blocks):
@@ -306,7 +321,8 @@ def loss_terms(cfg: ModelConfig, model: Transformer, batch: Dict[str, Any]
     """The training loss and its parts: ``{"loss": loss_fn(...)}``, and for
     an expert share (``MoEShareConfig``) ``loss`` = ``xent`` + lb_weight *
     ``lb_loss`` + z_weight * ``z_loss``, the router's losses summed over the
-    layers.  A share's held pairs computed and dropped are added to the
+    MoE layers (for ``MLAShareConfig`` ``lb_loss`` is the sequence-wise
+    balance loss and ``z_loss`` 0).  A share's held pairs computed and dropped are added to the
     device counters ``moe.pairs`` and ``moe.dropped`` (``obs.spans``)."""
     if not isinstance(cfg, MoEShareConfig):
         return {"loss": loss_fn(cfg, model, batch)}

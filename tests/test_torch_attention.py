@@ -74,10 +74,10 @@ def card():
 
 
 def engages(device=CUDA, dtypes=(BF, BF, BF), head_dim=128, seq=2048,
-            cached=False, self_attention=True):
+            cached=False, self_attention=True, v_dim=None):
     return fused_attention_engages(device, dtypes, head_dim, seq,
                                    cached=cached,
-                                   self_attention=self_attention)
+                                   self_attention=self_attention, v_dim=v_dim)
 
 
 # -- the rule, on the CPU ------------------------------------------------------
@@ -100,6 +100,14 @@ def engages(device=CUDA, dtypes=(BF, BF, BF), head_dim=128, seq=2048,
     (dict(head_dim=160), False),
     (dict(cached=True), False),
     (dict(self_attention=False), False),
+    # multi-head latent attention's variant: q and k at 192, v at 128
+    (dict(head_dim=192, v_dim=128), True),
+    (dict(head_dim=192), False),
+    (dict(head_dim=192, v_dim=192), False),
+    (dict(head_dim=128, v_dim=64), False),
+    (dict(head_dim=128, v_dim=128), True),
+    (dict(head_dim=192, v_dim=128, cached=True), False),
+    (dict(head_dim=192, v_dim=128, device=CPU), False),
 ])
 def test_rule(case, want):
     assert engages(**case) is want
@@ -194,6 +202,29 @@ def test_kernel_matches_chunked(card, case):
         B, S, H, KV, D, seed=sum(case[1:6]), device=CUDA, shuffled=shuffled,
         qk_norm=qk_norm)    # QK-norm as an expert share's attention feeds it
     gates.attention_against_plain(q, k, v, g, pos, causal, label)
+
+
+# multi-head latent attention's variant (q and k 192 wide, v 128) at
+# DeepSeek-V2-Lite's microbatch and a ragged one, at its softmax scale:
+# (label, B, S, H, D, DV, shuffled positions)
+MLA_CARD_CASES = [("dsv2-lite", 2, 4096, 16, 192, 128, False),
+                  ("ragged-mla", 1, 1000, 4, 192, 128, True)]
+MLA_SCALE = 0.1147213867929261
+
+
+@pytest.mark.chip
+@pytest.mark.parametrize("case", MLA_CARD_CASES,
+                         ids=[c[0] for c in MLA_CARD_CASES])
+def test_mla_variant_matches_chunked(card, case):
+    label, B, S, H, D, DV, shuffled = case
+    q, k, v, g, pos = gates.attention_operands(
+        B, S, H, H, D, seed=B + S + H, device=CUDA, shuffled=shuffled,
+        v_dim=DV)
+    spans.reset()
+    gates.attention_against_plain(q, k, v, g, pos, True, label,
+                                  scale=MLA_SCALE)
+    assert spans.total(f"attn.launches.forward.d{D}v{DV}") == 1
+    assert spans.total(f"attn.launches.backward.d{D}v{DV}") == 1
 
 
 # -- the kernel against the reference package, through a recorded reading ----
