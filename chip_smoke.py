@@ -38,7 +38,9 @@ nonzero:
    Then the fused attention kernel (``attention_phase``,
    ``src/repro_torch/kernels/csrc/attention.cu``; ``scripts/
    attention_phase.py`` runs it alone): built for olmo-1b's head dim
-   (causal; ptxas's registers printed), held to ``chunked_attention`` on
+   (causal; ptxas's registers printed, and the backward tile kernels'
+   registers and spilled bytes, which must be 0), held to
+   ``chunked_attention`` on
    the card at olmo-1b's microbatch (2 x 2,048 x 16 heads x 128) by
    ``repro_torch.kernels.gates.attention_against_plain`` (the gates of its
    ``chip`` tests: output, dQ, dK, dV within 3 bf16 ulps of each one's
@@ -50,7 +52,9 @@ nonzero:
    The same gates then hold it at OLMoE's microbatch (2 x 4,096 x 16
    heads x 128, causal) on q and k through QK-norm (a weighted RMSNorm
    over all heads' features, then RoPE), as ``MoEShareConfig``'s
-   attention feeds it.  Its record joins the ``kernels`` list; phase 7b
+   attention feeds it, two calls there must be bitwise equal
+   (``gates.attention_repeats``), and a call is timed, the backward alone
+   printed at both shapes.  Its record joins the ``kernels`` list; phase 7b
    fills in the main path's part (``attention_main_path``: the launches
    and calls counted in a profiled eager olmo-1b step, and the kernel's
    device ms in a profiled replay), and phase 7c the OLMoE step's.
@@ -280,11 +284,13 @@ nonzero:
       the bound: the ``kernels`` record's ``moe_gather`` entry.
    d. The benchmark's DeepSeek-V2-Lite share (``mla_phase``;
       ``scripts/mla_phase.py`` runs it alone): the fused attention's
-      (192, 128) variant, built at this phase; its gates at 2 x 4,096 x
+      (192, 128) variant, built at this phase (its backward tile kernels
+      spill nothing); its gates at 2 x 4,096 x
       16 heads (q, k 192 wide, v 128, the configuration's softmax scale
       0.114721) against ``chunked_attention``; its time a call over the
       bound of ``perfbench/roofline_mla.py``, at most 1.5 times the D =
-      128 variant's own ratio timed here at the same (B, S, H); a
+      128 variant's own ratio timed here at the same (B, S, H), the
+      backward alone a call printed; a
       profiled eager step of the share (5 layers, 16 of 64 experts held,
       top-6, 2 microbatches of 8,192 tokens): 20 forward and 10 backward
       launches of the variant, no chunked call, no pair dropped, one
@@ -334,6 +340,7 @@ import math
 import os
 import pathlib
 import random
+import re
 import statistics
 import subprocess
 import sys
@@ -638,6 +645,56 @@ def check_lanes(core, scheme: str, res, nets, params_of, lanes) -> dict:
                 scalar_ms_per_plan=scalar_s / len(lanes) * 1e3)
 
 
+def ptxas_report(out: str) -> dict:
+    """ptxas's registers and spilled bytes by kernel from a build's output
+    (``-Xptxas -v``): {kernel: {"registers", "spill_stores",
+    "spill_loads"}}, the kernel named by its unmangled base name."""
+    report, name = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function properties for (\w+)", line) or re.search(
+            r"Compiling entry function '(\w+)'", line)
+        if m:
+            found = re.search(r"\d+(attn_\w+?)E", m.group(1))
+            name = found.group(1) if found else m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            report.setdefault(name, {}).update(
+                spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            report.setdefault(name, {})["registers"] = int(m.group(1))
+    return report
+
+
+def backward_ptxas(out: str, label: str, *variant) -> dict:
+    """The backward tile kernels' part of ``ptxas_report`` for the build of
+    ``variant`` (``kernels.attention.build``'s arguments) whose compiler
+    output is ``out`` (built again in a temporary directory where ``out`` is
+    empty: the library was there already), logged; raises if either spills
+    (their consumers run on 240 registers of the block's pool, the count
+    ptxas reports being the one at launch)."""
+    import tempfile
+
+    from repro_torch.kernels import attention as kattn
+
+    if not out:
+        with tempfile.TemporaryDirectory() as tmp:
+            out = kattn.build(*variant, build_dir=pathlib.Path(tmp))[1]
+    report = {k: v for k, v in ptxas_report(out).items()
+              if k.startswith(("attn_bwd_kv", "attn_bwd_q"))}
+    for name, r in sorted(report.items()):
+        log(f"  ptxas, {label} {name}: {r.get('registers')} registers at "
+            f"launch, {r.get('spill_stores')} bytes of spill stores, "
+            f"{r.get('spill_loads')} of spill loads")
+    if len(report) != 2 or any(r.get("spill_stores") or r.get("spill_loads")
+                               for r in report.values()):
+        raise AssertionError(f"the backward's tile kernels {report}: both "
+                             "reported, and no spill")
+    return report
+
+
 def attention_flops(B: int, S: int, H: int, D: int, causal: bool):
     """(forward, backward) FLOPs of attention over B x H sequences of S at
     head dim D: 2 D multiply-adds a (query, key) pair a product, over the
@@ -647,6 +704,28 @@ def attention_flops(B: int, S: int, H: int, D: int, causal: bool):
     pairs = S * (S + 1) // 2 if causal else S * S
     product = 2 * B * H * pairs * D
     return 2 * product, 4 * product
+
+
+def attention_routes(q, k, v, pos, scale=None) -> dict:
+    """The three routes of causal attention over q, k and v (which need a
+    gradient) at ``pos``, the scores scaled by ``scale`` (1/sqrt of q's
+    width unless given): the fused kernel, ``chunked_attention`` (the plain
+    version) and ``scaled_dot_product_attention`` (the library's yardstick,
+    which the port never calls)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import attention as kattn
+    from repro_torch.models.layers import chunked_attention
+
+    return {
+        "kernel": lambda: kattn.fused_attention(q, k, v, pos, causal=True,
+                                                scale=scale),
+        "plain": lambda: chunked_attention(
+            q, k, v, causal=True, q_positions=pos, kv_positions=pos,
+            q_chunk=1024, kv_chunk=2048, scale=scale),
+        "library": lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, scale=scale).transpose(1, 2)}
 
 
 def attention_phase(seed: int) -> dict:
@@ -660,15 +739,12 @@ def attention_phase(seed: int) -> dict:
     beside the bound (``attention_flops`` at the bf16 peak),
     ``chunked_attention`` (the plain version) and
     ``scaled_dot_product_attention`` (the library's yardstick, which the
-    port never calls).  Then the same gates at OLMoE's microbatch
-    (``ATTN_SHAPE_OLMOE``) on QK-normed q and k, under ``olmoe_shape``.  A
-    train step's totals come from the main path (``attention_main_path``,
-    ``moe_main_path``)."""
-    import torch.nn.functional as F
-
+    port never calls).  Then the same gates, a bitwise repeat and the same
+    three timings at OLMoE's microbatch (``ATTN_SHAPE_OLMOE``) on QK-normed
+    q and k, under ``olmoe_shape``.  A train step's totals come from the
+    main path (``attention_main_path``, ``moe_main_path``)."""
     from repro_torch.kernels import attention as kattn
     from repro_torch.kernels import gates
-    from repro_torch.models.layers import chunked_attention
     from repro_torch.obs import spans
 
     B, S, H, KV, D = (ATTN_SHAPE[x] for x in ("B", "S", "H", "KV", "D"))
@@ -680,20 +756,14 @@ def attention_phase(seed: int) -> dict:
     for line in out.splitlines():
         if any(w in line for w in ("registers", "spill", "smem")):
             log("  ptxas:", line.strip())
+    bwd_ptxas = backward_ptxas(out, f"d{D}", D, True)
 
     dev = torch.device(DEVICE, torch.cuda.current_device())
     q, k, v, g, pos = gates.attention_operands(**ATTN_SHAPE, seed=seed,
                                                device=dev)
     gaps, rms = attention_gates(q, k, v, g, pos, "olmo-1b's microbatch")
     q, k, v = (t.requires_grad_(True) for t in (q, k, v))
-    routes = {
-        "kernel": lambda: kattn.fused_attention(q, k, v, pos, causal=True),
-        "plain": lambda: chunked_attention(
-            q, k, v, causal=True, q_positions=pos, kv_positions=pos,
-            q_chunk=1024, kv_chunk=2048),
-        "library": lambda: F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=True).transpose(1, 2)}
+    routes = attention_routes(q, k, v, pos)
 
     spans.reset()
     times = {name: attention_call_ms(fn, q, k, v, g)
@@ -720,6 +790,7 @@ def attention_phase(seed: int) -> dict:
         "library_backward_ms": times["library"][1],
         "tflops_forward": fwd_flops / times["kernel"][0] / 1e9,
         "tflops_backward": bwd_flops / times["kernel"][1] / 1e9,
+        "ptxas_backward": bwd_ptxas,
     }
     log(f"  a call: forward {rec['forward_ms']:.3f} ms "
         f"({rec['tflops_forward']:.0f} TFLOP/s; bound {bound[0]:.3f}, plain "
@@ -727,15 +798,36 @@ def attention_phase(seed: int) -> dict:
         f"backward {rec['backward_ms']:.3f} ms ({rec['tflops_backward']:.0f} "
         f"TFLOP/s; bound {bound[1]:.3f}, plain {times['plain'][1]:.3f}, "
         f"library {times['library'][1]:.3f})")
+    log(f"  the backward alone a call at olmo-1b's microbatch "
+        f"{tuple(q.shape)}: {rec['backward_ms']:.3f} ms")
     del q, k, v, g, routes
     torch.cuda.empty_cache()
-    olmoe = attention_gates(*gates.attention_operands(
-        **ATTN_SHAPE_OLMOE, seed=seed + 1, device=dev, qk_norm=True),
-        "OLMoE's QK-normed microbatch")
+    q, k, v, g, pos = gates.attention_operands(
+        **ATTN_SHAPE_OLMOE, seed=seed + 1, device=dev, qk_norm=True)
+    olmoe = attention_gates(q, k, v, g, pos, "OLMoE's QK-normed microbatch")
+    gates.attention_repeats(q, k, v, g, pos, True, "OLMoE's microbatch")
+    q, k, v = (t.requires_grad_(True) for t in (q, k, v))
+    times = {name: attention_call_ms(fn, q, k, v, g)
+             for name, fn in attention_routes(q, k, v, pos).items()}
+    bound = [x / BF16_FLOPS_PER_S * 1e3 for x in attention_flops(
+        ATTN_SHAPE_OLMOE["B"], ATTN_SHAPE_OLMOE["S"], ATTN_SHAPE_OLMOE["H"],
+        D, True)]
+    log(f"  the backward alone a call at OLMoE's microbatch "
+        f"{tuple(q.shape)}: {times['kernel'][1]:.3f} ms (bound "
+        f"{bound[1]:.3f}, plain {times['plain'][1]:.3f}, library "
+        f"{times['library'][1]:.3f}); the forward {times['kernel'][0]:.3f} "
+        f"(bound {bound[0]:.3f}, plain {times['plain'][0]:.3f}, library "
+        f"{times['library'][0]:.3f}); two calls bitwise equal")
+    del q, k, v, g
     rec["olmoe_shape"] = {"shape": dict(ATTN_SHAPE_OLMOE, causal=True,
                                         qk_norm=True),
                           "ulps_from_plain": olmoe[0],
-                          "rms_error_kernel_plain": olmoe[1]}
+                          "rms_error_kernel_plain": olmoe[1],
+                          "bound_forward_ms": bound[0],
+                          "bound_backward_ms": bound[1],
+                          **{f"{name}_{x}_ms": t[i]
+                             for name, t in times.items()
+                             for i, x in enumerate(("forward", "backward"))}}
     torch.cuda.empty_cache()
     return rec
 
@@ -813,6 +905,7 @@ def mla_phase(seed: int, root: pathlib.Path) -> dict:
              if any(w in line for w in ("registers", "spill", "smem"))]
     for line in ptxas:
         log("  ptxas:", line)
+    bwd_ptxas = backward_ptxas(out, f"d{D}v{DV}", D, True, DV)
     dev = torch.device(DEVICE, torch.cuda.current_device())
     q, k, v, g, pos = gates.attention_operands(**shape, seed=seed,
                                                device=dev)
@@ -824,6 +917,8 @@ def mla_phase(seed: int, root: pathlib.Path) -> dict:
             f"{n} {x:.2f}" for n, x in gaps.items())
         + " bf16 ulps; relative RMS error against fp64, kernel / plain: "
         + ", ".join(f"{n} {a:.3e} / {b:.3e}" for n, (a, b) in rms.items()))
+    gates.attention_repeats(q, k, v, g, pos, True, "at DeepSeek-V2-Lite's "
+                            "microbatch", scale=scale)
     B, S, H = shape["B"], shape["S"], shape["H"]
     times, ratios = {}, {}
     for label, (dqk, dv_, sc) in (("d192v128", (D, DV, scale)),
@@ -843,6 +938,18 @@ def mla_phase(seed: int, root: pathlib.Path) -> dict:
         log(f"  a call of the {label} variant at ({B}, {S}, {H}): forward "
             f"{fwd:.3f} ms, backward {bwd:.3f} ms; bound {bound[0]:.3f} + "
             f"{bound[1]:.3f}; {ratios[label]:.2f}x the bound")
+        if label == "d192v128":
+            for name, fn in attention_routes(q, k, v, pos, sc).items():
+                if name != "kernel":
+                    pair = attention_call_ms(fn, q, k, v, g)
+                    times[label].update({f"{name}_forward_ms": pair[0],
+                                         f"{name}_backward_ms": pair[1]})
+            log(f"  the backward alone a call at DeepSeek-V2-Lite's "
+                f"microbatch ({B}, {S}, {H}, {dqk}/{dv_}): {bwd:.3f} ms "
+                f"(plain {times[label]['plain_backward_ms']:.3f}, library "
+                f"{times[label]['library_backward_ms']:.3f}; forward plain "
+                f"{times[label]['plain_forward_ms']:.3f}, library "
+                f"{times[label]['library_forward_ms']:.3f})")
         del q, k, v, g
     torch.cuda.empty_cache()
     if not ratios["d192v128"] <= MLA_BOUND_RATIO * ratios["d128"]:
@@ -905,6 +1012,7 @@ def mla_phase(seed: int, root: pathlib.Path) -> dict:
         "matches_plain": True,
         "build_s": build_s,
         "ptxas": ptxas,
+        "ptxas_backward": bwd_ptxas,
         "calls": times,
         "bound_ratio": ratios,
         "bound_by": "operations",

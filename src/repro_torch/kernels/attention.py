@@ -5,6 +5,11 @@ its build, binding, launch and gradient.
 online softmax for a sequence over itself, forward and backward, with no
 score tile in device memory; its header says what bounds it on the card
 and how its arithmetic follows the plain version's, operand for operand.
+The forward runs on ``mma.sync``; the backward on Hopper's warpgroup
+products (``wgmma``) fed by TMA, each TF32 operand (dO' and dS) split
+exactly into two bf16 halves, so its products and their exactness are the
+TF32 ones.  The backward's scratch for dO' (the size of the output in
+fp32) holds those two halves.
 ``fused_attention_engages`` is the rule, a pure function of what the
 caller can observe (``launch_plan`` is the GF kernel's counterpart):
 ``models.layers.attention`` takes the kernel where it holds and
@@ -73,17 +78,17 @@ def _variant(head_dim: int, v_dim: Optional[int]) -> str:
         else f"d{head_dim}v{v_dim}"
 
 
-def build(head_dim: int, causal: bool, v_dim: Optional[int] = None
-          ) -> Tuple[pathlib.Path, str]:
+def build(head_dim: int, causal: bool, v_dim: Optional[int] = None,
+          build_dir: pathlib.Path = BUILD_DIR) -> Tuple[pathlib.Path, str]:
     """Compile the library of one variant (v as wide as q and k unless
-    ``v_dim`` says otherwise) and causal flag into ``BUILD_DIR`` unless it
-    is built: (path, compiler output)."""
+    ``v_dim`` says otherwise) and causal flag into ``build_dir`` unless it
+    is built there: (path, compiler output, with ptxas's report)."""
     narrow = () if v_dim in (None, head_dim) else (f"-DATTN_V_DIM={v_dim}",)
     return build_library(
         SOURCE, f"libattention_{_variant(head_dim, v_dim)}_"
         f"{'causal' if causal else 'full'}",
         (*NVCC_FLAGS, f"-DATTN_HEAD_DIM={head_dim}", *narrow,
-         f"-DATTN_CAUSAL={int(causal)}"), BUILD_DIR)
+         f"-DATTN_CAUSAL={int(causal)}"), build_dir)
 
 
 @functools.lru_cache(maxsize=None)
@@ -104,8 +109,8 @@ def library(head_dim: int, causal: bool, v_dim: Optional[int] = None
 
 
 def _operand(t: torch.Tensor) -> torch.Tensor:
-    """``t`` contiguous on a 16-byte boundary (the kernel's cp.async
-    loads), copied only where it is not."""
+    """``t`` contiguous on a 16-byte boundary (the forward's cp.async loads
+    and the backward's TMA copies), copied only where it is not."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 

@@ -28,6 +28,9 @@ attention's, on the same bf16 q, k, v and upstream gradient:
   2e-3, bf16's rounding of the outputs; one wrong row of 2,048 alone
   reads about 2e-2, ten times that.
 
+And ``attention_repeats``: two backward calls on the same operands give
+bitwise-equal dQ, dK and dV (no atomics; nothing depends on the schedule).
+
 AdamW (``adamw_against_plain``): one fused call against the plain update
 run at the kernel's clip (the plain version's own fp32 norm differs by an
 ulp or so, and near-zero m then differs by millions of ulps): m and v
@@ -196,6 +199,21 @@ def attention_against_plain(q, k, v, g, pos, causal: bool, label: str = "",
     del fused, plain
     torch.cuda.empty_cache()
     return readings
+
+
+def attention_repeats(q, k, v, g, pos, causal: bool, label: str = "",
+                      scale: float = None) -> None:
+    """Two calls of the fused kernel's forward and backward on the same
+    operands: raises unless the output, dQ, dK and dV are bitwise equal."""
+    first, second = (attention_grads(
+        lambda a, b, c: kattn.fused_attention(a, b, c, pos, causal=causal,
+                                              scale=scale), q, k, v, g)
+        for _ in range(2))
+    torch.cuda.synchronize()
+    differ = [name for name, a, b in zip(ATTN_NAMES, first, second)
+              if not torch.equal(a, b)]
+    if differ:
+        raise AssertionError(f"{label}: {differ} differ between two calls")
 
 
 # -- AdamW --------------------------------------------------------------------

@@ -4,7 +4,8 @@ route (``models.layers.attention``).
 On the CPU: the rule that engages the kernel (``fused_attention_engages``:
 devices, dtypes, head dims, a cache, shared positions), which full configs
 take it, and that the CPU route is ``chunked_attention``'s, bitwise, with
-the counter ``attn.fused`` left at 0.
+the counter ``attn.fused`` left at 0; and the exactness of the split that
+the backward's products rest on (a TF32 value as two bf16 halves).
 
 On the card (marked ``chip``, skipped without one; this file imports JAX
 only inside the CPU tests that run the reference): the kernel's output
@@ -13,8 +14,9 @@ olmo-1b's training shape (2 x 2,048 x 16 heads x 128, causal), OLMoE's
 (2 x 4,096 x 16 x 128, causal) on q and k through its QK-norm (a weighted
 RMSNorm over all heads' features, eps 1e-5, scales 1 + 0.1 N(0, 1)) and
 RoPE (theta 10,000), yi-6b's GQA (32 query heads over 4 KV heads, 128),
-one non-causal shape, and a ragged head-dim-64 sequence at shuffled
-positions; and against the
+one non-causal shape, a ragged head-dim-64 sequence at shuffled
+positions, and the backward's cases in every variant (ragged lengths, GQA
+of four, causal and full), each also repeated bitwise; and against the
 reference package's ``chunked_attention`` (JAX) at three small shapes,
 through its readings recorded in ``tests/data/attention_reference.npz``
 (which the CPU tests hold to the reference, bitwise, and the port's plain
@@ -225,6 +227,54 @@ def test_mla_variant_matches_chunked(card, case):
                                   scale=MLA_SCALE)
     assert spans.total(f"attn.launches.forward.d{D}v{DV}") == 1
     assert spans.total(f"attn.launches.backward.d{D}v{DV}") == 1
+
+
+# the backward on warpgroup products in each variant: lengths that are no
+# multiple of its key or query steps (64, or 32 at D = 192) nor of a
+# block's 128, GQA with four query heads to a KV head, causal and full; each
+# case held to the plain version and repeated bitwise
+# (label, B, S, H, KV, D, DV, causal, shuffled positions, scale)
+BACKWARD_CASES = [
+    ("d64-full-ragged", 1, 777, 8, 8, 64, 64, False, True, None),
+    ("d128-gqa4-ragged", 1, 1000, 16, 4, 128, 128, True, True, None),
+    ("d128-full-gqa4", 2, 333, 8, 2, 128, 128, False, False, None),
+    ("d192v128-ragged", 1, 1000, 4, 4, 192, 128, True, False, MLA_SCALE),
+    ("d192v128-full", 1, 300, 4, 4, 192, 128, False, True, MLA_SCALE)]
+
+
+@pytest.mark.chip
+@pytest.mark.parametrize("case", BACKWARD_CASES,
+                         ids=[c[0] for c in BACKWARD_CASES])
+def test_backward_matches_chunked_and_repeats(card, case):
+    label, B, S, H, KV, D, DV, causal, shuffled, scale = case
+    q, k, v, g, pos = gates.attention_operands(
+        B, S, H, KV, D, seed=S + H + KV, device=CUDA, shuffled=shuffled,
+        v_dim=DV)
+    gates.attention_against_plain(q, k, v, g, pos, causal, label,
+                                  scale=scale)
+    gates.attention_repeats(q, k, v, g, pos, causal, label, scale=scale)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_tf32_split_is_exact(seed):
+    """The backward's premise, on the CPU: a TF32 value x (an fp32 value
+    with its low 13 bits clear) is hi + lo with hi = x with its low 16 bits
+    clear and lo = x - hi, both bf16 values, and for any bf16 b the fp32
+    products hi * b and lo * b are exact, so hi * b + lo * b is x * b
+    exactly (in fp64, which holds every such sum)."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(1 << 16, generator=gen) * torch.exp2(
+        torch.randint(-60, 60, (1 << 16,), generator=gen).float())
+    x = (x.view(torch.int32) & ~0x1FFF).view(F32)            # TF32 values
+    hi = (x.view(torch.int32) & ~0xFFFF).view(F32)
+    lo = x - hi
+    assert torch.equal(hi.to(BF).float(), hi)
+    assert torch.equal(lo.to(BF).float(), lo)                # exact in bf16
+    b = torch.randn(1 << 16, generator=gen).to(BF).float()
+    for part in (hi, lo):
+        assert torch.equal((part * b).double(), part.double() * b.double())
+    assert torch.equal((hi * b).double() + (lo * b).double(),
+                       x.double() * b.double())
 
 
 # -- the kernel against the reference package, through a recorded reading ----
